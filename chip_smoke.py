@@ -21,10 +21,27 @@ Phases, each printing its own lines:
    frames on the CPU, against phase 5;
 7. CUDA-event timings: ms per frame on both paths, each kernel against its
    plain twin at the operating-point shapes; and one frame under
-   torch.profiler, its 15 costliest ops by device time printed.
+   torch.profiler, its 15 costliest ops by device time printed;
+8. the conv kernel against its plain twin at the K-Net layer shape
+   (64, 64, 96, 64) -> 64 (bf16 output with the BatchNorm sums, and the
+   fp32 output), ``conv3d_dma`` at C=N=16 and W=100, and the gradients of
+   ``conv3d_3x3x3`` against autograd through the plain conv;
+9. ``sweep_cost_volume_l2`` on the card: the fused sweep kernel, bit for bit;
+10. the T=8 rollout with ``fast_knet=True`` (the K-Net's ten 64->64 convs on
+   the conv kernel): phase 5's checks, the conv kernel launched 10 x (T-1)
+   times (frame 0 skips the K-Net), the same rollout on the plain twins, and
+   both held against phase 5's exact path to the JAX flag's class (mean
+   |depth difference| < 0.05 m);
+11. timings of the fast path: ms per frame beside the exact path, the conv
+   kernel per layer beside its plain twin, cuDNN's bf16 conv3d and its
+   bound, the ten-layer chain, and the resample at W=192 and 384.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
-line. Any failed check exits non-zero before those two lines.
+line. Any failed check exits non-zero before those two lines. Every
+kernel's ``bound_ms`` is computed here from the shapes it was timed at:
+the larger of its bytes (each input read once, each output written once)
+over 3.35 TB/s and its operations over the card's peak for their type
+(989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s fp32).
 """
 
 from __future__ import annotations
@@ -39,15 +56,19 @@ import time
 import numpy as np
 import torch
 
-from neuralrgbd_tpu.config import ModelConfig
-from neuralrgbd_tpu.data.synthetic import synthetic_batch
+from neuralrgbd_tpu_torch.config import ModelConfig
+from neuralrgbd_tpu_torch.data.synthetic import synthetic_batch
 from neuralrgbd_tpu_torch.infer.rollout import make_rollout
 from neuralrgbd_tpu_torch.infer.step import make_infer_step
 from neuralrgbd_tpu_torch.models.kvnet import KVNet
 from neuralrgbd_tpu_torch.ops.camera import camera_from_K
 from neuralrgbd_tpu_torch.ops.cuda import build
+from neuralrgbd_tpu_torch.ops.cuda import conv3d as kconv
 from neuralrgbd_tpu_torch.ops.cuda import resample as kresample
 from neuralrgbd_tpu_torch.ops.cuda import sweep_fused as ksweep
+from neuralrgbd_tpu_torch.ops.cuda.conv3d_dma import conv3d_dma
+from neuralrgbd_tpu_torch.ops.cuda.conv3d_pair import knet_fast_apply
+from neuralrgbd_tpu_torch.ops.cuda.sweep import sweep_cost_volume_l2
 from neuralrgbd_tpu_torch.ops.dpv import uniform_dpv
 from neuralrgbd_tpu_torch.ops.sweep import _sweep_pixel_coords
 
@@ -55,13 +76,28 @@ CFG = ModelConfig()          # feature_dim 64, D=64, t_win_r=2, fp32, exact
 IMG_HW = (256, 384)
 T = 8
 SEED = 0
-KERNELS = {"sweep_fused": ksweep, "resample": kresample}
+KERNELS = {"sweep_fused": ksweep, "resample": kresample, "conv3d": kconv}
 # Kernel vs plain twin: the twins go through F.grid_sample, which maps pixel
 # coords to [-1, 1] and back; at widths up to 384 px that moves a coordinate
 # by ~1e-4 px, i.e. ~1e-4 in O(1) sampled values.
 TOL = {"cost": (1e-4, 1e-3), "kept": (1e-4, 5e-4), "resample": (1e-4, 5e-4)}
 # Kernel path vs plain path through 8 recurrent frames (depth in m).
 ROLLOUT_TOL = {"depth": 1e-2, "confidence": 1e-2}
+# Conv kernel vs plain twin: both sum exact bf16 products in fp32, in
+# another order (and cuDNN's fp32 algorithm may round its own way), so the
+# fp32 outputs differ by ~1e-5 on O(1) values; a bf16 output then differs
+# by at most one bf16 ulp where a sum lands on the other side of a rounding
+# boundary (2^-7 relative). Statistics: rtol 1e-4 of the sum of |terms|.
+CONV_TOL = {"fp32": (1e-5, 1e-4), "bf16": (8e-3, 1e-5), "stats": 1e-4,
+            "grad": (1e-5, 1e-5)}
+# The fast K-Net path (bf16 convs) vs the exact path, and the kernel vs the
+# plain twins on the fast path: the class of the JAX flag's own test
+# (tests/test_pallas_conv_pair.py:130), mean |depth difference| in m.
+FAST_DEPTH_MEAN = 0.05
+KNET_LAYER = (CFG.ndepth, IMG_HW[0] // 4, IMG_HW[1] // 4, CFG.kv_feature_dim)
+# Published peaks of one H100 SXM (dense) and its memory rate.
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
 
 failures: list[str] = []
 
@@ -139,23 +175,31 @@ def _roll_poses(V: int, degrees: float, device) -> torch.Tensor:
     return torch.from_numpy(poses).to(device)
 
 
-def sweep_inputs(device, poses):
-    V, D, h, w, C = CFG.n_views, CFG.ndepth, 64, 96, CFG.feature_dim + 3
+def sweep_args(device, poses):
+    """(ref, srcs, Rs, ts, cam, d_candi) at V=4, D=64, 64x96, C=67."""
+    V, h, w, C = CFG.n_views, 64, 96, CFG.feature_dim + 3
     g = torch.Generator().manual_seed(SEED)
     ref = torch.randn(h, w, C, generator=g).to(device)
     srcs = torch.randn(V, h, w, C, generator=g).to(device)
     cam = camera_from_K(_K(h, w), device)
     d = torch.as_tensor(CFG.d_candi, device=device)
-    coords = _sweep_pixel_coords(cam, poses[:, :3, :3], poses[:, :3, 3], d,
-                                 h, w)
-    return ref, srcs, coords
+    return ref, srcs, poses[:, :3, :3], poses[:, :3, 3], cam, d
+
+
+def sweep_inputs(device, poses):
+    ref, srcs, Rs, ts, cam, d = sweep_args(device, poses)
+    return ref, srcs, _sweep_pixel_coords(cam, Rs, ts, d, *ref.shape[:2])
+
+
+def translation_poses(device) -> torch.Tensor:
+    return torch.from_numpy(
+        synthetic_batch(CFG, seed=SEED)[0]["poses"][0]).to(device)
 
 
 def phase_sweep(device, errs) -> None:
     print("phase 3: sweep kernel vs plain twin at V=4 D=64 64x96 C=67",
           flush=True)
-    translation = torch.from_numpy(synthetic_batch(CFG, seed=SEED)[0]["poses"][0])
-    for pose_name, poses in (("translation", translation.to(device)),
+    for pose_name, poses in (("translation", translation_poses(device)),
                              ("roll 5 deg/view", _roll_poses(4, 5.0, device))):
         ref, srcs, coords = sweep_inputs(device, poses)
         for dist in ("L2", "L1"):
@@ -212,17 +256,20 @@ def bv0_on(device) -> torch.Tensor:
                        device)[None]
 
 
-def phase_rollout(model, device) -> tuple:
-    print(f"phase 5: kernel-path rollout, T={T} at {IMG_HW[1]}x{IMG_HW[0]}",
-          flush=True)
-    frames = frames_on(device, T)
+def check_rollout(model, frames, fast_knet: bool, want_launches: dict):
+    """Run the kernel-path rollout with the counts set to 0 just before and
+    read just after; check the counts, shapes and value ranges, and the
+    log-DPVs of one more step (outside the counted window)."""
     for mod in KERNELS.values():
         mod.launches = 0
-    depth, conf, bv = make_rollout(CFG)(model, frames, bv0_on(device), [False])
+    depth, conf, bv = make_rollout(CFG, fast_knet=fast_knet)(
+        model, frames, bv0_on(frames["ref"].device), [False])
     torch.cuda.synchronize()
     launches = {name: mod.launches for name, mod in KERNELS.items()}
     for name, n in launches.items():
-        check(n == T, f"{name} launched {n} times in {T} frames")
+        check(n == want_launches[name],
+              f"{name} launched {n} times in {T} frames "
+              f"(expected {want_launches[name]})")
     H, W = IMG_HW
     check(depth.shape == (T, 1, H, W) and conf.shape == (T, 1, H, W)
           and bv.shape == (1, CFG.ndepth, H // 4, W // 4), "output shapes")
@@ -236,15 +283,23 @@ def phase_rollout(model, device) -> tuple:
           f"{float(conf.max()):.4f}]")
     check(bool(((bv <= 0) & (bv >= -1000)).all()),
           "prediction log-DPV in [-1000, 0]")
-    # the log-DPVs of one more step (outside the counted window)
-    out = make_infer_step(CFG)(model, {k: v[-1] for k, v in frames.items()},
-                               bv, [True])
+    out = make_infer_step(CFG, fast_knet=fast_knet)(
+        model, {k: v[-1] for k, v in frames.items()}, bv, [True])
     for name in ("dpv", "dpv_refined"):
         lv = getattr(out, name)
         s = lv.exp().sum(1)
         check(bool((lv <= 0).all()) and max_err(s, torch.ones_like(s)) < 1e-4,
               f"{name} <= 0 and sums to 1 over D (max|sum-1| "
               f"{max_err(s, torch.ones_like(s)):.2e})")
+    return launches, depth, conf
+
+
+def phase_rollout(model, device) -> tuple:
+    print(f"phase 5: kernel-path rollout, T={T} at {IMG_HW[1]}x{IMG_HW[0]}",
+          flush=True)
+    frames = frames_on(device, T)
+    launches, depth, conf = check_rollout(
+        model, frames, False, {"sweep_fused": T, "resample": T, "conv3d": 0})
     return launches, frames, depth, conf
 
 
@@ -272,10 +327,11 @@ def phase_plain(model, device, frames, depth, conf) -> None:
               f"card vs CPU, first 2 frames, {name}: max|err| {e:.3e}")
 
 
-def frame_ms(model, device, kernels: bool) -> list[float]:
+def frame_ms(model, device, kernels: bool, fast_knet: bool = False
+             ) -> list[float]:
     """CUDA-event ms of frames 1..T-1 of a rollout (frame 0 skips the K-Net)."""
     frames = frames_on(device, T)
-    step = make_infer_step(CFG, kernels=kernels)
+    step = make_infer_step(CFG, kernels=kernels, fast_knet=fast_knet)
     bv, valid, times = bv0_on(device), [False], []
     for t in range(T):
         start = torch.cuda.Event(enable_timing=True)
@@ -287,6 +343,43 @@ def frame_ms(model, device, kernels: bool) -> list[float]:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return times[1:]
+
+
+def bound(nbytes: float, flops: float, kind: str) -> tuple[float, str]:
+    """(least ms the card could take, what sets it)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[kind]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else \
+        "operations"
+
+
+def sweep_bound(ref, srcs, coords, keep: int) -> tuple[float, str]:
+    """Inputs (ref, srcs, coords) read once, cost and kept RGB written once;
+    11 fp32 flops per (view, depth, pixel, channel): 4 FMAs of bilinear
+    interpolation, the difference, and the FMA of its square."""
+    V, D, HW = coords.shape[:3]
+    C = ref.shape[-1]
+    nbytes = 4 * (ref.numel() + srcs.numel() + coords.numel()
+                  + D * HW + V * D * HW * keep)
+    return bound(nbytes, 11.0 * V * D * HW * C, "fp32")
+
+
+def resample_bound(D, H, W) -> tuple[float, str]:
+    """The volume and 3 coordinate volumes read once, the output written
+    once; ~40 fp32 flops per voxel (weights and 8 FMAs)."""
+    n = D * H * W
+    return bound(4 * 5 * n, 40.0 * n, "fp32")
+
+
+def conv_bound(shape, N: int, out_bytes: int, with_stats: bool
+               ) -> tuple[float, str]:
+    """bf16 x and w read once, the output (and the 2N fp32 sums) written
+    once; 2 * 27 * C flops per output value on the bf16 tensor cores."""
+    D, H, W, C = shape
+    n = D * H * W
+    nbytes = (2 * n * C + 2 * 27 * C * N + out_bytes * n * N
+              + 8 * N * with_stats)
+    return bound(nbytes, 2.0 * n * N * 27 * C, "bf16")
 
 
 def phase_timing(model, device) -> dict:
@@ -301,26 +394,36 @@ def phase_timing(model, device) -> dict:
     print(f"  rollout ms/frame (median of {len(runs[True])} frames): "
           f"kernel path {per_frame[True]:.3f}, plain path "
           f"{per_frame[False]:.3f}", flush=True)
-    ref, srcs, coords = sweep_inputs(
-        device, torch.from_numpy(
-            synthetic_batch(CFG, seed=SEED)[0]["poses"][0]).to(device))
+    ref, srcs, coords = sweep_inputs(device, translation_poses(device))
     lv, cx, cy, cz = resample_inputs(device, CFG.ndepth, 64, 96)
     pad = math.log(1.0 / CFG.ndepth)
     calls = {
         "sweep_fused": (
             lambda: ksweep.sweep_kernel(ref, srcs, coords, 10.0, "L2", 3),
-            lambda: ksweep.sweep_plain(ref, srcs, coords, 10.0, "L2", 3)),
+            lambda: ksweep.sweep_plain(ref, srcs, coords, 10.0, "L2", 3),
+            sweep_bound(ref, srcs, coords, 3)),
         "resample": (
             lambda: kresample.resample_kernel(lv, cx, cy, cz, pad),
-            lambda: kresample.resample_plain(lv, cx, cy, cz, pad)),
+            lambda: kresample.resample_plain(lv, cx, cy, cz, pad),
+            resample_bound(CFG.ndepth, 64, 96)),
     }
-    times = {}
-    for name, (kern, plain) in calls.items():
-        p1, k1, k2, p2 = (cuda_ms(f) for f in (plain, kern, kern, plain))
-        times[name] = (statistics.mean((k1, k2)), statistics.mean((p1, p2)))
-        print(f"  {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
-              f"{p2:.4f} ms", flush=True)
-    return {"per_frame": per_frame, "kernels": times}
+    return {"per_frame": per_frame,
+            "kernels": {name: time_kernel(name, *c) for name, c in calls.items()}}
+
+
+def time_kernel(name, kern, plain, bound_of, library=None) -> dict:
+    """Kernel, plain twin and library call, in the order plain, kernel,
+    kernel, plain (library, library around them), beside the bound."""
+    p1, k1, k2, p2 = (cuda_ms(f) for f in (plain, kern, kern, plain))
+    lib = statistics.mean([cuda_ms(library) for _ in range(2)]) \
+        if library else None
+    row = {"ms": statistics.mean((k1, k2)), "plain_ms": statistics.mean((p1, p2)),
+           "bound_ms": bound_of[0], "bound_by": bound_of[1], "library_ms": lib}
+    print(f"  {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
+          f"{p2:.4f} ms, library "
+          f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
+          f"{bound_of[0]:.4f} ms ({bound_of[1]})", flush=True)
+    return row
 
 
 def profile_step(model, device) -> None:
@@ -341,10 +444,174 @@ def profile_step(model, device) -> None:
                                     max_name_column_width=48), flush=True)
 
 
+def conv_inputs(device, shape, N, seed=SEED):
+    """Inputs at the scale a K-Net layer sees: post-BN-ReLU activations
+    (bf16) and fan-out He weights."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(*shape, generator=g).relu().to(torch.bfloat16)
+    w = torch.randn(3, 3, 3, shape[-1], N, generator=g) * math.sqrt(
+        2.0 / (27 * N))
+    return x.to(device), w.to(device)
+
+
+def stats_ok(got, want, terms) -> bool:
+    return bool(((got - want).abs() <= CONV_TOL["stats"] * terms).all())
+
+
+def phase_conv(device, errs) -> None:
+    print(f"phase 8: conv kernel vs plain twin at the K-Net layer "
+          f"{KNET_LAYER} -> {CFG.kv_feature_dim}", flush=True)
+    x, w = conv_inputs(device, KNET_LAYER, CFG.kv_feature_dim)
+    y, ssum, ssq = kconv.conv3d_kernel(x, w, torch.bfloat16, True)
+    y32 = kconv.conv3d_kernel(x, w, torch.float32)
+    want32 = kconv.conv3d_plain(x, w, torch.float32)
+    want, wsum, wssq = kconv.conv3d_plain(x, w, torch.bfloat16, True)
+    torch.cuda.synchronize()
+    e32, e16 = max_err(y32, want32), max_err(y.float(), want.float())
+    es, eq = max_err(ssum, wsum), max_err(ssq, wssq)
+    errs += [e32, e16]
+    check(within(y32, want32, *CONV_TOL["fp32"]),
+          f"fp32 output: max|err| {e32:.3e} (|y| <= "
+          f"{float(want32.abs().max()):.2f})")
+    check(within(y.float(), want.float(), *CONV_TOL["bf16"]),
+          f"bf16 output: max|err| {e16:.3e}, "
+          f"{int((y != want).sum())} of {y.numel()} values one rounding apart")
+    check(stats_ok(ssum, wsum, want32.abs().sum((0, 1, 2)))
+          and stats_ok(ssq, wssq, wssq),
+          f"BatchNorm sums: max|err| {es:.3e} (|sum| <= "
+          f"{float(wsum.abs().max()):.1f}), sums of squares {eq:.3e} "
+          f"(<= {float(wssq.max()):.1f})")
+
+    shape = (16, 24, 100, 16)
+    x, w = conv_inputs(device, shape, 16, seed=SEED + 1)
+    y, ssum, ssq = conv3d_dma(x, w, with_stats=True)
+    want32 = kconv.conv3d_plain(x, w, torch.float32)
+    want, wsum, wssq = kconv.conv3d_plain(x, w, torch.bfloat16, True)
+    torch.cuda.synchronize()
+    e16 = max_err(y.float(), want.float())
+    errs.append(e16)
+    check(within(y.float(), want.float(), *CONV_TOL["bf16"])
+          and stats_ok(ssum, wsum, want32.abs().sum((0, 1, 2)))
+          and stats_ok(ssq, wssq, wssq),
+          f"conv3d_dma {shape} -> 16: max|err| {e16:.3e}, sums "
+          f"{max_err(ssum, wsum):.3e}, sums of squares "
+          f"{max_err(ssq, wssq):.3e}")
+
+    shape = (4, 6, 70, 16)
+    x, w = conv_inputs(device, shape, 24, seed=SEED + 2)
+    x = x.float()
+    cot = torch.randn(*shape[:3], 24,
+                      generator=torch.Generator().manual_seed(SEED)).to(device)
+    grads = []
+    for fn in (kconv.conv3d_3x3x3, kconv.conv3d_fp32):
+        xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+        (fn(xg, wg) * cot).sum().backward()
+        grads.append((xg.grad, wg.grad))
+    torch.cuda.synchronize()
+    (gx, gw), (px, pw) = grads
+    check(within(gx, px, *CONV_TOL["grad"]) and within(gw, pw, *CONV_TOL["grad"]),
+          f"conv3d_3x3x3 {shape} -> 24 gradients vs autograd through the "
+          f"plain conv: max|err| x {max_err(gx, px):.3e}, w "
+          f"{max_err(gw, pw):.3e}")
+
+
+def phase_sweep_l2(device) -> None:
+    print("phase 9: sweep_cost_volume_l2 on the card", flush=True)
+    args = sweep_args(device, translation_poses(device))
+    before = ksweep.launches
+    cost, kept = sweep_cost_volume_l2(*args, 10.0, 3)
+    launched = ksweep.launches - before
+    want_cost, want_kept = ksweep.sweep_cost_volume_fused(*args, 10.0, "L2", 3)
+    torch.cuda.synchronize()
+    check(launched == 1 and torch.equal(cost, want_cost)
+          and torch.equal(kept, want_kept),
+          f"equals sweep_cost_volume_fused bit for bit; sweep kernel "
+          f"launched {launched} time(s)")
+
+
+def phase_fast(model, frames, depth) -> dict:
+    print(f"phase 10: fast_knet rollout, T={T} at {IMG_HW[1]}x{IMG_HW[0]}",
+          flush=True)
+    launches, fdepth, _ = check_rollout(
+        model, frames, True,
+        {"sweep_fused": T, "resample": T, "conv3d": 10 * (T - 1)})
+    pdepth, _, _ = make_rollout(CFG, kernels=False, fast_knet=True)(
+        model, frames, bv0_on(frames["ref"].device), [False])
+    torch.cuda.synchronize()
+    for name, other in (("fast kernel path vs fast plain path", pdepth),
+                        ("fast kernel path vs exact kernel path", depth)):
+        err = (fdepth - other).abs()
+        check(float(err.mean()) < FAST_DEPTH_MEAN,
+              f"{name}, depth: mean|err| {float(err.mean()):.3e} m, max "
+              f"{float(err.max()):.3e} m over {T} frames")
+    return launches
+
+
+def phase_fast_timing(model, device) -> dict:
+    print("phase 11: fast-path timing (CUDA events)", flush=True)
+    runs = {True: [], False: []}
+    for fast in (False, True, True, False):
+        times = frame_ms(model, device, True, fast_knet=fast)
+        runs[fast] += times
+        print(f"  {'fast_knet' if fast else 'exact'} kernel path, frames "
+              f"1..{T - 1}: {' '.join(f'{t:.2f}' for t in times)} ms",
+              flush=True)
+    per_frame = {k: statistics.median(v) for k, v in runs.items()}
+    print(f"  rollout ms/frame (median of {len(runs[True])} frames): "
+          f"fast_knet {per_frame[True]:.3f}, exact {per_frame[False]:.3f}",
+          flush=True)
+
+    N = CFG.kv_feature_dim
+    x, w = conv_inputs(device, KNET_LAYER, N)
+    xl = x.permute(3, 0, 1, 2)[None].contiguous(
+        memory_format=torch.channels_last_3d)
+    wl = w.to(torch.bfloat16).permute(4, 3, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d)
+    row = time_kernel(
+        "conv3d per K-Net layer",
+        lambda: kconv.conv3d_kernel(x, w, torch.bfloat16, True),
+        lambda: kconv.conv3d_plain(x, w, torch.bfloat16, True),
+        conv_bound(KNET_LAYER, N, 2, True),
+        lambda: torch.nn.functional.conv3d(xl, wl, padding=1))
+    time_kernel(
+        "conv3d per K-Net layer, fp32 output (the conv3d_3x3x3 forward)",
+        lambda: kconv.conv3d_kernel(x, w, torch.float32),
+        lambda: kconv.conv3d_plain(x, w, torch.float32),
+        conv_bound(KNET_LAYER, N, 4, False),
+        lambda: torch.nn.functional.conv3d(xl, wl, padding=1))
+
+    def chain(conv):
+        z = x
+        for _ in range(10):
+            z = conv(z, w, torch.bfloat16, True)[0]
+        return z
+
+    vol = torch.randn(*KNET_LAYER[:3], CFG.kvnet_in_channels,
+                      generator=torch.Generator().manual_seed(SEED)).to(device)
+    with torch.no_grad():
+        k10 = cuda_ms(lambda: chain(kconv.conv3d_kernel), reps=5)
+        p10 = cuda_ms(lambda: chain(kconv.conv3d_plain), reps=5)
+        fast = cuda_ms(lambda: knet_fast_apply(model.kv_net, vol), reps=5)
+        exact = cuda_ms(lambda: model.kv_net(vol.permute(3, 0, 1, 2)[None]),
+                        reps=5)
+    print(f"  ten-layer conv chain: kernel {k10:.3f} ms, plain {p10:.3f} ms, "
+          f"bound {10 * row['bound_ms']:.3f} ms; whole K-Net: "
+          f"knet_fast_apply {fast:.3f} ms, fp32 KNet module {exact:.3f} ms",
+          flush=True)
+    pad = math.log(1.0 / CFG.ndepth)
+    for W in (192, 384):
+        lv, cx, cy, cz = resample_inputs(device, CFG.ndepth, 64, W)
+        time_kernel(f"resample at (64, 64, {W})",
+                    lambda: kresample.resample_kernel(lv, cx, cy, cz, pad),
+                    lambda: kresample.resample_plain(lv, cx, cy, cz, pad),
+                    resample_bound(CFG.ndepth, 64, W))
+    return {"per_frame": per_frame, "conv3d": row}
+
+
 def main() -> int:
     device = phase_device()
     phase_build()
-    errs = {"sweep_fused": [], "resample": []}
+    errs = {name: [] for name in KERNELS}
     phase_sweep(device, errs["sweep_fused"])
     phase_resample(device, errs["resample"])
     model = KVNet(CFG, device=device, seed=SEED, single_refine=True)
@@ -352,6 +619,11 @@ def main() -> int:
     phase_plain(model, device, frames, depth, conf)
     timing = phase_timing(model, device)
     profile_step(model, device)
+    phase_conv(device, errs["conv3d"])
+    phase_sweep_l2(device)
+    launches["conv3d"] = phase_fast(model, frames, depth)["conv3d"]
+    fast_timing = phase_fast_timing(model, device)
+    timing["kernels"]["conv3d"] = fast_timing["conv3d"]
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed:", *failures,
               sep="\n  ", file=sys.stderr)
@@ -360,9 +632,7 @@ def main() -> int:
         "kernels": [{
             "name": name, "route": "cuda", "source": mod.SOURCE,
             "replaces": mod.REPLACES, "launches": launches[name],
-            "max_abs_err": max(errs[name]),
-            "ms": timing["kernels"][name][0],
-            "plain_ms": timing["kernels"][name][1],
+            "max_abs_err": max(errs[name]), **timing["kernels"][name],
         } for name, mod in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

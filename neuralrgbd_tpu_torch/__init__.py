@@ -7,12 +7,19 @@ against it by ``tests/test_torch_*.py``.
 
 Layer map:
 
+- ``config``      ``ModelConfig`` (the port's own copy of the JAX package's).
+- ``data``        seeded synthetic windows for tests and chip runs.
 - ``ops``         camera, grid sampling, plane sweep, DPV algebra (plain torch).
 - ``ops.cuda``    hand-written CUDA C++ kernels for sm_90a (sources in
-                  ``csrc/``), each beside its plain PyTorch twin.
+                  ``csrc/``: the plane sweep, the DPV resample and the 3x3x3
+                  conv), each beside its plain PyTorch twin, and the fast
+                  K-Net chain on the conv kernel.
 - ``models``      D-Net feature extractor, K-Net, R-Net, KVNet as ``nn.Module``s.
 - ``infer``       the per-frame inference step and the video rollout.
 - ``utils``       the JAX->torch weight bridge.
+
+The port imports nothing of JAX or of the JAX package. Its entry points
+build on the CUDA card unless the caller names another device.
 
 Public functions keep the JAX package's layouts: frames (H, W, 3), features
 (h, w, C), DPVs (D, h, w), poses (4, 4).

@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from neuralrgbd_tpu.config import ModelConfig
+from neuralrgbd_tpu_torch.config import ModelConfig
 from neuralrgbd_tpu_torch.models.kvnet import KVNet, check_supported
 from neuralrgbd_tpu_torch.ops.camera import Camera
 from neuralrgbd_tpu_torch.ops.cuda.resample import resample_dpv_cuda
@@ -44,12 +44,18 @@ class InferStepOutput(NamedTuple):
     confidence: torch.Tensor     # (N, H, W) exp(max_d) of the refined DPV
 
 
-def make_infer_step(cfg: ModelConfig, kernels: bool = True):
+def make_infer_step(cfg: ModelConfig, kernels: bool = True,
+                    fast_knet: bool = False):
     """Returns ``infer_step(model, batch, bv_predict, bv_valid)``.
 
     ``model`` is a ``KVNet`` built from ``cfg`` with ``single_refine=True``.
-    ``kernels`` runs the sweep and the resample on the CUDA kernels (their
-    plain twins for CPU tensors); False runs the plain versions everywhere.
+    The step runs wherever the model and the tensors are: on the card for a
+    model built there (the default), on the CPU for one built with
+    ``device="cpu"``. ``kernels`` runs the sweep, the resample and (with
+    ``fast_knet``) the K-Net convs on the CUDA kernels (their plain twins
+    for CPU tensors); False runs the plain versions everywhere.
+    ``fast_knet``: the K-Net on ``knet_fast_apply`` (see ``KVNet.forward``),
+    off by default as in JAX.
 
     batch dict of tensors (leading N = lanes):
       ref (N, H, W, 3), srcs (N, V, H, W, 3), poses (N, V, 4, 4) ref->src,
@@ -66,7 +72,7 @@ def make_infer_step(cfg: ModelConfig, kernels: bool = True):
             cam = Camera(K=batch["K"][n])
             out = model(batch["ref"][n], batch["srcs"][n], batch["poses"][n],
                         cam, d_candi, bv_predict[n], bool(valid),
-                        kernels=kernels)
+                        kernels=kernels, fast_knet=fast_knet)
             bv_next = predict_next(out.dpv, batch["pose_next"][n], cam,
                                    d_candi, kernels)
             lanes.append((out.dpv, out.dpv_refined, bv_next,

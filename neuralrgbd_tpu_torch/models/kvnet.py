@@ -9,6 +9,9 @@ Module names give the reference KVNET's state_dict keys
 Unlike JAX, where a static graph runs the K-Net on the first frame too and
 ``jnp.where`` discards it, eager PyTorch skips the K-Net when the
 prediction is invalid; the outputs are the same.
+
+The model is built on the CUDA card unless the caller names another
+device (the CPU tests pass ``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -19,12 +22,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from neuralrgbd_tpu.config import ModelConfig
+from neuralrgbd_tpu_torch.config import ModelConfig
 from neuralrgbd_tpu_torch.models.feature_extractor import FeatureExtractor
 from neuralrgbd_tpu_torch.models.knet import KNet
 from neuralrgbd_tpu_torch.models.layers import reference_init_
 from neuralrgbd_tpu_torch.models.rnet import RNet
 from neuralrgbd_tpu_torch.ops.camera import Camera
+from neuralrgbd_tpu_torch.ops.cuda.conv3d_pair import knet_fast_apply
 from neuralrgbd_tpu_torch.ops.cuda.sweep_fused import sweep_cost_volume_fused
 from neuralrgbd_tpu_torch.ops.sweep import (sweep_cost_volume,
                                             warp_to_ref_over_depths)
@@ -57,13 +61,20 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 class KVNet(nn.Module):
-    def __init__(self, cfg: ModelConfig, device=None, seed: int = 0,
-                 single_refine: bool = False):
-        """``single_refine``: inference-only, refine just the posterior (the
-        two R-Net passes agree whenever the measurement's refinement is
-        used); training needs both."""
+    def __init__(self, cfg: ModelConfig, device=torch.device("cuda"),
+                 seed: int = 0, single_refine: bool = False):
+        """``device``: where the parameters live, the CUDA card by default;
+        without one, ask for the CPU explicitly. ``single_refine``:
+        inference-only, refine just the posterior (the two R-Net passes
+        agree whenever the measurement's refinement is used); training
+        needs both."""
         super().__init__()
         check_supported(cfg)
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "KVNet builds on the CUDA card by default and this process "
+                "sees none; pass device='cpu' to build on the CPU")
         self.cfg = cfg
         self.single_refine = single_refine
         self.feature_extractor = nn.ModuleDict({
@@ -84,10 +95,16 @@ class KVNet(nn.Module):
         bv_valid: bool,             # is bv_predict usable? (host bool)
         precomputed: Optional[tuple] = None,
         kernels: bool = True,
+        fast_knet: bool = False,
     ) -> KVNetOutput:
-        """``kernels`` routes the plane sweep through the CUDA kernel
-        wrapper (which takes its plain twin for CPU tensors); False runs
-        ``ops.sweep.sweep_cost_volume`` on any device."""
+        """``kernels`` routes the plane sweep (and, with ``fast_knet``, the
+        K-Net convs) through the CUDA kernel wrappers, which take their
+        plain twins for CPU tensors; False runs the plain versions on any
+        device. ``fast_knet`` (inference only, off by default as in JAX)
+        runs the K-Net as ``ops.cuda.conv3d_pair.knet_fast_apply``: its
+        ten 64->64 convs in bf16 with fp32 accumulation. As in JAX it
+        applies only when ``kv_feature_dim`` is 64; any other width takes
+        the plain K-Net."""
         if precomputed is not None:
             raise NotImplementedError(
                 "precomputed features (the cached-feature rollout) are not "
@@ -130,7 +147,11 @@ class KVNet(nn.Module):
                 ints[-1][:, None].expand(3, D, h, w),
                 (bv_cur - bv_predict)[None],
             ])
-            gain = self.kv_net(vol[None])[0]                     # (D, h, w)
+            if fast_knet and cfg.kv_feature_dim == 64:
+                gain = knet_fast_apply(self.kv_net,
+                                       vol.permute(1, 2, 3, 0), kernels)
+            else:
+                gain = self.kv_net(vol[None])[0]                 # (D, h, w)
             dpv = F.log_softmax(gain + bv_predict, dim=0)
         else:
             dpv = bv_cur

@@ -6,7 +6,10 @@ The JAX package imports the reference's torch state_dicts with
 flax layout). ``state_dict_from_jax`` runs both backwards: from a flax
 variables tree (numpy leaves) to a state_dict with the reference KVNET's
 keys, which the port's ``KVNet`` loads with ``load_state_dict(strict=True)``.
-The name map is reused from the JAX module, which imports only numpy.
+``build_name_map`` and its two helpers are a copy of the JAX module's
+(``neuralrgbd_tpu/utils/torch_import.py:26-106``), held equal to it by
+``tests/test_torch_standalone.py``: the port imports nothing of the JAX
+package.
 """
 
 from __future__ import annotations
@@ -16,7 +19,88 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-from neuralrgbd_tpu.utils.torch_import import build_name_map
+
+def _convbn(torch_prefix: str, flax_prefix: str, dims: int = 2):
+    """convbn/convbn_3d Sequential(conv, bn)."""
+    return {
+        f"{torch_prefix}.0.weight": (f"{flax_prefix}/conv/kernel",
+                                     "conv3d" if dims == 3 else "conv2d"),
+        f"{torch_prefix}.1.weight": (f"{flax_prefix}/bn/scale", "copy"),
+        f"{torch_prefix}.1.bias": (f"{flax_prefix}/bn/bias", "copy"),
+    }
+
+
+def _conv_bias(torch_prefix: str, flax_prefix: str):
+    return {
+        f"{torch_prefix}.weight": (f"{flax_prefix}/kernel", "conv2d"),
+        f"{torch_prefix}.bias": (f"{flax_prefix}/bias", "copy"),
+    }
+
+
+def build_name_map(refine_net: str = "DPV") -> dict[str, tuple[str, str]]:
+    """torch state_dict key -> (flax path 'a/b/c/leaf', transform).
+
+    ``refine_net`` selects the r_net section: 'DPV' (RefineNet_DPV_upsample)
+    or 'DGF' (RefineNet_DGF, Refine.py:587-641)."""
+    m: dict[str, tuple[str, str]] = {}
+
+    # ---- feature extractor (psm_submodule.feature_extraction) ----
+    fe_t = "feature_extractor.feature_extraction"
+    fe_f = "feature_extractor"
+    for i, j in ((0, 0), (2, 1), (4, 2)):
+        m.update(_convbn(f"{fe_t}.firstconv.{i}", f"{fe_f}/first{j}"))
+
+    layer_blocks = {"layer1": 3, "layer2": 16, "layer3": 3, "layer4": 3}
+    for lname, nblocks in layer_blocks.items():
+        for b in range(nblocks):
+            t = f"{fe_t}.{lname}.{b}"
+            f = f"{fe_f}/{lname}_{b}"
+            # BasicBlock: conv1 = Sequential(convbn, ReLU) => conv1.0.*
+            m.update(_convbn(f"{t}.conv1.0", f"{f}/conv1"))
+            m.update(_convbn(f"{t}.conv2", f"{f}/conv2"))
+            # downsample = Sequential(Conv2d, BN) on the first block when
+            # stride/channels change (layer2_0, layer3_0)
+            m[f"{t}.downsample.0.weight"] = (f"{f}/down_conv/kernel", "conv2d")
+            m[f"{t}.downsample.1.weight"] = (f"{f}/down_bn/scale", "copy")
+            m[f"{t}.downsample.1.bias"] = (f"{f}/down_bn/bias", "copy")
+
+    for k in range(4):  # torch branch1..4 == our branch0..3
+        m.update(_convbn(f"{fe_t}.branch{k + 1}.1", f"{fe_f}/branch{k}"))
+    m.update(_convbn(f"{fe_t}.lastconv.0", f"{fe_f}/last0"))
+    m[f"{fe_t}.lastconv.2.weight"] = (f"{fe_f}/last1/kernel", "conv2d")
+
+    # ---- D-Net optional costV refinement convs (basic.py:189-196) ----
+    # present only when the model was built with refine_costv; entries for
+    # an absent branch land in the report's missing_flax_keys
+    m.update(_conv_bias("d_net.conv0.0", "costv_conv0"))
+    m.update(_conv_bias("d_net.conv0_1.0", "costv_conv0_1"))
+    m.update(_conv_bias("d_net.conv0_2", "costv_conv0_2"))
+
+    # ---- K-Net (basic.KV_NET_BASIC) ----
+    kv_t, kv_f = "kv_net", "kv_net"
+    for d in range(5):
+        for i, j in ((0, 0), (2, 1)):
+            m.update(_convbn(f"{kv_t}.dres{d}.{i}", f"{kv_f}/dres{d}_{j}",
+                             dims=3))
+    m.update(_convbn(f"{kv_t}.classify.0", f"{kv_f}/classify_0", dims=3))
+    m[f"{kv_t}.classify.2.weight"] = (f"{kv_f}/classify_1/kernel", "conv3d")
+
+    # ---- R-Net ----
+    r_t, r_f = "r_net", "r_net"
+    if refine_net == "DGF":
+        # RefineNet_DGF.feature_ext = Sequential(Conv2d(3,64,1), ReLU,
+        # Conv2d(64,1,1)) (Refine.py:598-601)
+        m.update(_conv_bias(f"{r_t}.feature_ext.0", f"{r_f}/feature_ext_0"))
+        m.update(_conv_bias(f"{r_t}.feature_ext.2", f"{r_f}/feature_ext_2"))
+        return m
+    # Refine.RefineNet_DPV_upsample
+    for name in ("conv0", "conv0_1", "conv1", "conv1_1", "conv2", "conv2_1"):
+        m.update(_conv_bias(f"{r_t}.{name}.0", f"{r_f}/{name}"))
+    m.update(_conv_bias(f"{r_t}.conv2_2", f"{r_f}/conv2_2"))
+    for name in ("trans_conv0", "trans_conv1"):
+        m[f"{r_t}.{name}.0.weight"] = (f"{r_f}/{name}/kernel", "deconv2d")
+        m[f"{r_t}.{name}.0.bias"] = (f"{r_f}/{name}/bias", "copy")
+    return m
 
 
 def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:

@@ -70,7 +70,7 @@ def test_round_trip_through_jax_importer(variables):
 
 def test_strict_load_into_port(variables):
     sd = state_dict_from_jax(variables)
-    model = KVNet(CFG)
+    model = KVNet(CFG, device="cpu")
     model.load_state_dict(sd, strict=True)
     own = model.state_dict()
     assert own.keys() == sd.keys()

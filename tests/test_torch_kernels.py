@@ -8,7 +8,10 @@ held against the JAX package in ``test_torch_ops.py``.
 Kernel vs twin tolerance: rtol 1e-5, atol 1e-4 on the L2 cost (sums of
 ~270 squared differences of O(1) values, accumulated in another order by
 grid_sample and by the kernel), and 1e-5 on the resample (8 taps, same
-arithmetic, FMA contraction only).
+arithmetic, FMA contraction only). The conv kernel and its twin sum the
+same exact bf16 products in fp32 in another order: rtol 1e-5 on the fp32
+output and on the statistics (atol scaled by the sum of |terms|), and
+one bf16 ulp (rtol 8e-3) on the bf16 output.
 """
 
 import math
@@ -17,9 +20,15 @@ import numpy as np
 import pytest
 import torch
 
+from neuralrgbd_tpu_torch.models.knet import KNet
+from neuralrgbd_tpu_torch.models.layers import reference_init_
 from neuralrgbd_tpu_torch.ops import camera
+from neuralrgbd_tpu_torch.ops.cuda import conv3d as kconv
 from neuralrgbd_tpu_torch.ops.cuda import resample as kresample
 from neuralrgbd_tpu_torch.ops.cuda import sweep_fused as ksweep
+from neuralrgbd_tpu_torch.ops.cuda.conv3d_dma import conv3d_dma
+from neuralrgbd_tpu_torch.ops.cuda.conv3d_pair import knet_fast_apply
+from neuralrgbd_tpu_torch.ops.cuda.sweep import sweep_cost_volume_l2
 from neuralrgbd_tpu_torch.ops.sweep import _sweep_pixel_coords
 
 
@@ -91,6 +100,26 @@ def test_resample_wrapper_takes_plain_on_cpu():
     assert got.max() <= 0 and got.min() >= -1000
 
 
+def _conv_inputs(D=3, H=4, W=70, C=16, N=24, device=None, seed=0):
+    """Post-BN-ReLU-like activations and fan-out He weights."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(D, H, W, C, generator=g).relu()
+    w = torch.randn(3, 3, 3, C, N, generator=g) * math.sqrt(2 / (27 * N))
+    return x.to(device), w.to(device)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_conv_wrapper_takes_plain_on_cpu(out_dtype):
+    x, w = _conv_inputs()
+    before = kconv.launches
+    got = kconv.conv3d(x, w, out_dtype, with_stats=True)
+    want = kconv.conv3d_plain(x, w, out_dtype, with_stats=True)
+    assert kconv.launches == before
+    assert got[0].dtype == out_dtype and got[0].shape == (3, 4, 70, 24)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 def test_kernel_launchers_refuse_cpu_tensors():
     """On anything but a CUDA tensor the launchers raise; they never build."""
     ref, srcs, Rs, ts, cam, d = _sweep_inputs()
@@ -101,6 +130,9 @@ def test_kernel_launchers_refuse_cpu_tensors():
     cx, cy, cz = kresample.resample_pixel_coords(cam, rel, d, 10, 14)
     with pytest.raises(ValueError, match="CUDA"):
         kresample.resample_kernel(lv, cx, cy, cz, -math.log(8))
+    x, w = _conv_inputs()
+    with pytest.raises(ValueError, match="CUDA"):
+        kconv.conv3d_kernel(x, w)
 
 
 @pytest.mark.cuda
@@ -139,3 +171,76 @@ def test_kernel_launchers_check_inputs(cuda_device):
         kresample.resample_kernel(lv.double(), cx, cy, cz, -math.log(8))
     with pytest.raises(ValueError, match="one CUDA device"):
         kresample.resample_kernel(lv, cx.cpu(), cy, cz, -math.log(8))
+
+
+def _stats_close(got, want, terms):
+    """Sums of fp32 terms taken in another order: within 1e-5 of the sum of
+    the terms' magnitudes."""
+    assert bool(((got - want).abs() <= 1e-5 * terms + 1e-6).all()), (
+        float((got - want).abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 4, 70, 16, 24), (2, 5, 64, 8, 8),
+                                   (4, 6, 12, 64, 64), (2, 3, 130, 72, 136)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_conv_kernel_matches_plain(cuda_device, shape):
+    D, H, W, C, N = shape
+    x, w = _conv_inputs(D, H, W, C, N, device=cuda_device)
+    before = kconv.launches
+    y, ssum, ssq = kconv.conv3d_kernel(x, w, torch.bfloat16, True)
+    y32 = kconv.conv3d_kernel(x, w, torch.float32)
+    torch.cuda.synchronize()
+    assert kconv.launches == before + 2
+    want32 = kconv.conv3d_plain(x, w, torch.float32)
+    want, wsum, wssq = kconv.conv3d_plain(x, w, torch.bfloat16, True)
+    torch.testing.assert_close(y32, want32, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(y.float(), want.float(), rtol=8e-3, atol=1e-5)
+    _stats_close(ssum, wsum, want32.abs().sum((0, 1, 2)))
+    _stats_close(ssq, wssq, want32.square().sum((0, 1, 2)))
+
+
+@pytest.mark.cuda
+def test_conv_entry_points_on_the_card(cuda_device):
+    x, w = _conv_inputs(device=cuda_device)
+    before = kconv.launches
+    y, s, q = conv3d_dma(x, w, with_stats=True)
+    g = torch.randn(y.shape, generator=torch.Generator().manual_seed(2))
+    g = g.to(cuda_device)
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    out = kconv.conv3d_3x3x3(xg, wg)
+    (out * g).sum().backward()
+    torch.cuda.synchronize()
+    assert kconv.launches == before + 2
+    assert y.dtype == torch.bfloat16 and out.dtype == torch.float32
+    torch.testing.assert_close(out, kconv.conv3d_plain(x, w, torch.float32),
+                               rtol=1e-5, atol=1e-5)
+    xp, wp = x.clone().requires_grad_(), w.clone().requires_grad_()
+    (kconv.conv3d_fp32(xp, wp) * g).sum().backward()
+    for a, b in ((xg.grad, xp.grad), (wg.grad, wp.grad)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_knet_fast_apply_kernel_matches_plain(cuda_device):
+    knet = reference_init_(KNet(16, 64, device=cuda_device), seed=0)
+    vol = torch.randn(6, 8, 70, 16, generator=torch.Generator().manual_seed(1))
+    vol = vol.to(cuda_device)
+    before = kconv.launches
+    got = knet_fast_apply(knet, vol)
+    torch.cuda.synchronize()
+    assert kconv.launches == before + 10
+    want = knet_fast_apply(knet, vol, kernels=False)
+    err = (got - want).abs()
+    assert float(err.max()) < 0.05 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_sweep_l2_is_the_fused_kernel(cuda_device):
+    ref, srcs, Rs, ts, cam, d = _sweep_inputs(device=cuda_device)
+    before = ksweep.launches
+    cost, kept = sweep_cost_volume_l2(ref, srcs, Rs, ts, cam, d, 10.0, 3)
+    assert ksweep.launches == before + 1
+    want_cost, want_kept = ksweep.sweep_cost_volume_fused(
+        ref, srcs, Rs, ts, cam, d, 10.0, "L2", 3)
+    assert torch.equal(cost, want_cost) and torch.equal(kept, want_kept)

@@ -96,7 +96,7 @@ def bundle():
         jnp.asarray(srcs), jnp.asarray(poses), jcam, jnp.asarray(d_candi),
         jnp.asarray(bv_predict), jnp.asarray(True))
     variables = random_variables(shapes, rng)
-    model = KVNet(CFG)
+    model = KVNet(CFG, device="cpu")
     model.load_state_dict(state_dict_from_jax(variables), strict=True)
 
     apply = jax.jit(jmodel.apply)
@@ -184,7 +184,7 @@ def test_reference_init():
     weights have the fan-out He std; the init is a pure function of the seed."""
     want = jlayers.bilinear_deconv_init(None, (4, 4, 3, 2))
     _close(layers.bilinear_kernel(4, 4), np.asarray(want)[:, :, 0, 0])
-    a, b, c = KVNet(CFG, seed=5), KVNet(CFG, seed=5), KVNet(CFG, seed=6)
+    a, b, c = (KVNet(CFG, device="cpu", seed=s) for s in (5, 5, 6))
     for (name, pa), pb, pc in zip(a.state_dict().items(),
                                   b.state_dict().values(),
                                   c.state_dict().values()):

@@ -69,7 +69,7 @@ def weights():
         return x.astype(np.float32)
 
     variables = jax.tree_util.tree_map_with_path(leaf, shapes)
-    model = KVNet(CFG, single_refine=True)
+    model = KVNet(CFG, device="cpu", single_refine=True)
     model.load_state_dict(state_dict_from_jax(variables), strict=True)
     return variables, model
 
@@ -142,6 +142,6 @@ def test_deferred_options_raise(change):
 
     cfg = dataclasses.replace(CFG, **change)
     with pytest.raises(NotImplementedError):
-        KVNet(cfg)
+        KVNet(cfg, device="cpu")
     with pytest.raises(NotImplementedError):
         make_infer_step(cfg)
