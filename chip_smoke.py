@@ -6,10 +6,12 @@
 Phases, each printing its own lines:
 
 1. the device: fail without CUDA; print the card's name and power limit;
-2. build every kernel from ``neuralrgbd_tpu_torch/csrc`` (nvcc, sm_90a);
+2. build every kernel from ``neuralrgbd_tpu_torch/csrc`` (nvcc, sm_90a),
+   printing ``ptxas``'s registers and shared memory for each;
 3. the sweep kernel against its plain twin at the operating point
    (V=4, D=64, 64x96, C=67), translation poses and 5 deg of roll per view,
-   L2 and L1;
+   L2 and L1, on channels-last features and on channel-planar ones seen
+   through strides (the layout ``KVNet`` hands it);
 4. the resample kernel against its plain twin at (64, 64, 96), and at
    the wide shapes (64, 64, 192) and (64, 256, 384);
 5. a T=8 rollout of the KV-Net at 384x256 (D=64, 4 source views,
@@ -32,9 +34,13 @@ Phases, each printing its own lines:
    times (frame 0 skips the K-Net), the same rollout on the plain twins, and
    both held against phase 5's exact path to the JAX flag's class (mean
    |depth difference| < 0.05 m);
-11. timings of the fast path: ms per frame beside the exact path, the conv
-   kernel per layer beside its plain twin, cuDNN's bf16 conv3d and its
-   bound, the ten-layer chain, and the resample at W=192 and 384.
+11. timings of the fast path: ms per frame beside the exact path; the conv
+   kernel per layer on pre-packed weights, as the rollout calls it (the
+   packed-weight cache of ``knet_fast_apply``) and through the wrapper on
+   unpacked weights (packing on every call), each beside its plain twin,
+   cuDNN's bf16 conv3d and its bound, with its TFLOP/s and share of the
+   bound; the ten-layer chain, the whole K-Net, and the resample at W=192
+   and 384.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Any failed check exits non-zero before those two lines. Every
@@ -67,7 +73,8 @@ from neuralrgbd_tpu_torch.ops.cuda import conv3d as kconv
 from neuralrgbd_tpu_torch.ops.cuda import resample as kresample
 from neuralrgbd_tpu_torch.ops.cuda import sweep_fused as ksweep
 from neuralrgbd_tpu_torch.ops.cuda.conv3d_dma import conv3d_dma
-from neuralrgbd_tpu_torch.ops.cuda.conv3d_pair import knet_fast_apply
+from neuralrgbd_tpu_torch.ops.cuda.conv3d_pair import (_layer, knet_fast_apply,
+                                                       packed_weights)
 from neuralrgbd_tpu_torch.ops.cuda.sweep import sweep_cost_volume_l2
 from neuralrgbd_tpu_torch.ops.dpv import uniform_dpv
 from neuralrgbd_tpu_torch.ops.sweep import _sweep_pixel_coords
@@ -154,8 +161,11 @@ def phase_build() -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("registers", "spill", "smem",
+                                       "Performance Loss")):
                 print(f"  {name}: {line.strip()}", flush=True)
+    print(f"  conv3d: {kconv.dynamic_smem_bytes()} bytes of dynamic shared "
+          f"memory per block", flush=True)
 
 
 def _K(h: int, w: int) -> np.ndarray:
@@ -191,6 +201,12 @@ def sweep_inputs(device, poses):
     return ref, srcs, _sweep_pixel_coords(cam, Rs, ts, d, *ref.shape[:2])
 
 
+def planar(t: torch.Tensor) -> torch.Tensor:
+    """The same values stored channel-planar ((V,) C, H, W), seen through
+    strides in the channels-last shape: what ``KVNet`` passes the sweep."""
+    return t.movedim(-1, -3).contiguous().movedim(-3, -1)
+
+
 def translation_poses(device) -> torch.Tensor:
     return torch.from_numpy(
         synthetic_batch(CFG, seed=SEED)[0]["poses"][0]).to(device)
@@ -203,18 +219,21 @@ def phase_sweep(device, errs) -> None:
                              ("roll 5 deg/view", _roll_poses(4, 5.0, device))):
         ref, srcs, coords = sweep_inputs(device, poses)
         for dist in ("L2", "L1"):
-            cost, kept = ksweep.sweep_kernel(ref, srcs, coords,
-                                             CFG.sigma_soft_max, dist, 3)
             pcost, pkept = ksweep.sweep_plain(ref, srcs, coords,
                                               CFG.sigma_soft_max, dist, 3)
-            torch.cuda.synchronize()
-            e_cost, e_kept = max_err(cost, pcost), max_err(kept, pkept)
-            errs.append(max(e_cost, e_kept))
-            check(within(cost, pcost, *TOL["cost"])
-                  and within(kept, pkept, *TOL["kept"]),
-                  f"sweep {pose_name} {dist}: max|cost err| {e_cost:.3e} "
-                  f"(|cost| <= {float(pcost.abs().max()):.1f}), "
-                  f"max|kept err| {e_kept:.3e}")
+            for layout, r, sr in (("channels-last", ref, srcs),
+                                  ("planar", planar(ref), planar(srcs))):
+                cost, kept = ksweep.sweep_kernel(r, sr, coords,
+                                                 CFG.sigma_soft_max, dist, 3)
+                torch.cuda.synchronize()
+                e_cost, e_kept = max_err(cost, pcost), max_err(kept, pkept)
+                errs.append(max(e_cost, e_kept))
+                check(within(cost, pcost, *TOL["cost"])
+                      and within(kept, pkept, *TOL["kept"]),
+                      f"sweep {pose_name} {dist} {layout}: max|cost err| "
+                      f"{e_cost:.3e} (|cost| <= "
+                      f"{float(pcost.abs().max()):.1f}), max|kept err| "
+                      f"{e_kept:.3e}")
 
 
 def resample_inputs(device, D, h, w):
@@ -395,11 +414,16 @@ def phase_timing(model, device) -> dict:
           f"kernel path {per_frame[True]:.3f}, plain path "
           f"{per_frame[False]:.3f}", flush=True)
     ref, srcs, coords = sweep_inputs(device, translation_poses(device))
+    pref, psrcs = planar(ref), planar(srcs)
     lv, cx, cy, cz = resample_inputs(device, CFG.ndepth, 64, 96)
     pad = math.log(1.0 / CFG.ndepth)
+    cl_ms = cuda_ms(
+        lambda: ksweep.sweep_kernel(ref, srcs, coords, 10.0, "L2", 3))
+    print(f"  sweep_fused on channels-last features: {cl_ms:.4f} ms "
+          f"(the row below: planar, as KVNet passes them)", flush=True)
     calls = {
         "sweep_fused": (
-            lambda: ksweep.sweep_kernel(ref, srcs, coords, 10.0, "L2", 3),
+            lambda: ksweep.sweep_kernel(pref, psrcs, coords, 10.0, "L2", 3),
             lambda: ksweep.sweep_plain(ref, srcs, coords, 10.0, "L2", 3),
             sweep_bound(ref, srcs, coords, 3)),
         "resample": (
@@ -563,34 +587,54 @@ def phase_fast_timing(model, device) -> dict:
 
     N = CFG.kv_feature_dim
     x, w = conv_inputs(device, KNET_LAYER, N)
+    pw = kconv.pack_weights(w)
+    layer = _layer(model.kv_net, "dres1_0")[0]    # a 64->64 K-Net conv
     xl = x.permute(3, 0, 1, 2)[None].contiguous(
         memory_format=torch.channels_last_3d)
     wl = w.to(torch.bfloat16).permute(4, 3, 0, 1, 2).contiguous(
         memory_format=torch.channels_last_3d)
+
+    def cudnn():
+        return torch.nn.functional.conv3d(xl, wl, padding=1)
+
+    bound_bf16 = conv_bound(KNET_LAYER, N, 2, True)
+    flops = 2.0 * math.prod(KNET_LAYER) * 27 * N
     row = time_kernel(
-        "conv3d per K-Net layer",
+        "conv3d per K-Net layer, pre-packed weights",
+        lambda: kconv.conv3d_kernel(x, pw, torch.bfloat16, True),
+        lambda: kconv.conv3d_plain(x, w, torch.bfloat16, True),
+        bound_bf16, cudnn)
+    print(f"  conv3d: {flops / row['ms'] * 1e-9:.1f} TFLOP/s, "
+          f"{100 * row['bound_ms'] / row['ms']:.1f}% of its bound "
+          f"({flops / 1e9:.1f} GFLOP at 989 TFLOP/s bf16); cuDNN bf16 "
+          f"{flops / row['library_ms'] * 1e-9:.1f} TFLOP/s", flush=True)
+    time_kernel(
+        "conv3d per K-Net layer as the rollout calls it (cached packing)",
+        lambda: kconv.conv3d(x, packed_weights(layer), torch.bfloat16, True),
+        lambda: kconv.conv3d_plain(x, w, torch.bfloat16, True),
+        bound_bf16, cudnn)
+    time_kernel(
+        "conv3d per K-Net layer through the wrapper, packing every call",
         lambda: kconv.conv3d_kernel(x, w, torch.bfloat16, True),
         lambda: kconv.conv3d_plain(x, w, torch.bfloat16, True),
-        conv_bound(KNET_LAYER, N, 2, True),
-        lambda: torch.nn.functional.conv3d(xl, wl, padding=1))
+        bound_bf16, cudnn)
     time_kernel(
         "conv3d per K-Net layer, fp32 output (the conv3d_3x3x3 forward)",
-        lambda: kconv.conv3d_kernel(x, w, torch.float32),
+        lambda: kconv.conv3d_kernel(x, pw, torch.float32),
         lambda: kconv.conv3d_plain(x, w, torch.float32),
-        conv_bound(KNET_LAYER, N, 4, False),
-        lambda: torch.nn.functional.conv3d(xl, wl, padding=1))
+        conv_bound(KNET_LAYER, N, 4, False), cudnn)
 
-    def chain(conv):
+    def chain(conv, wt):
         z = x
         for _ in range(10):
-            z = conv(z, w, torch.bfloat16, True)[0]
+            z = conv(z, wt, torch.bfloat16, True)[0]
         return z
 
     vol = torch.randn(*KNET_LAYER[:3], CFG.kvnet_in_channels,
                       generator=torch.Generator().manual_seed(SEED)).to(device)
     with torch.no_grad():
-        k10 = cuda_ms(lambda: chain(kconv.conv3d_kernel), reps=5)
-        p10 = cuda_ms(lambda: chain(kconv.conv3d_plain), reps=5)
+        k10 = cuda_ms(lambda: chain(kconv.conv3d_kernel, pw), reps=5)
+        p10 = cuda_ms(lambda: chain(kconv.conv3d_plain, w), reps=5)
         fast = cuda_ms(lambda: knet_fast_apply(model.kv_net, vol), reps=5)
         exact = cuda_ms(lambda: model.kv_net(vol.permute(3, 0, 1, 2)[None]),
                         reps=5)

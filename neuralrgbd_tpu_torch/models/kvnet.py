@@ -119,7 +119,9 @@ class KVNet(nn.Module):
         h, w = feat.shape[-2:]
         ints = F.avg_pool2d(frames, W // w)        # (V+1, 3, h, w)
         sw = torch.cat([feat, ints], 1) if cfg.use_img_intensity else feat
-        sw = sw.permute(0, 2, 3, 1).contiguous()   # (V+1, h, w, C)
+        # channels-last view of the planar features: the sweep kernel reads
+        # them through strides, coalesced in this layout, without a copy
+        sw = sw.permute(0, 2, 3, 1)                # (V+1, h, w, C)
 
         Rs, ts = src_poses[:, :3, :3], src_poses[:, :3, 3]
         keep = 3 if cfg.use_img_intensity else 0

@@ -93,6 +93,11 @@ def kernel_function(name: str, argtypes) -> ctypes._CFuncPtr:
     return fn
 
 
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of a kernel whose entry was taken before."""
+    return _libs[name]
+
+
 def check_launch(name: str, err: int) -> None:
     """Raise if a launch returned a CUDA error."""
     if err:

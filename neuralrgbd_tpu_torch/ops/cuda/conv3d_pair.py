@@ -8,7 +8,8 @@ operation order:
   accumulation, outside the kernel as in JAX, then fp32 BatchNorm on batch
   statistics and ReLU, then the cast to bf16;
 - ``dres0_1``, ``dres{1..4}_{0,1}`` and ``classify_0``: the conv kernel,
-  bf16 in and out, with the per-channel sum and sum of squares of its fp32
+  bf16 in and out, on weights packed once per layer (``packed_weights``),
+  with the per-channel sum and sum of squares of its fp32
   accumulator; BatchNorm from those sums (``bn_apply``: mean, biased
   variance, ``a``, ``b`` in fp32, then ``z * a + b`` in bf16), ReLU and the
   bf16 residual add, with the skips of ``KNet``;
@@ -29,7 +30,8 @@ import torch
 from torch import nn
 
 from neuralrgbd_tpu_torch.models.knet import KNet
-from neuralrgbd_tpu_torch.ops.cuda.conv3d import conv3d, conv3d_plain
+from neuralrgbd_tpu_torch.ops.cuda.conv3d import (PackedWeights, conv3d,
+                                                  conv3d_plain, pack_weights)
 
 
 def _layer(knet: KNet, name: str) -> nn.Module:
@@ -41,6 +43,19 @@ def _layer(knet: KNet, name: str) -> nn.Module:
 def _dhwio(conv: nn.Conv3d) -> torch.Tensor:
     """torch (O, I, kd, kh, kw) -> the JAX layout (kd, kh, kw, I, O)."""
     return conv.weight.permute(2, 3, 4, 1, 0)
+
+
+def packed_weights(conv: nn.Conv3d) -> PackedWeights:
+    """The conv's weights in the kernel's layout, packed once and kept on
+    the module until its weight is written in place (its version moves) or
+    replaced."""
+    w = conv.weight
+    key = (w.data_ptr(), w._version)
+    hit = getattr(conv, "_packed_weights", None)
+    if hit is None or hit[0] != key:
+        hit = (key, pack_weights(_dhwio(conv).detach()))
+        conv._packed_weights = hit
+    return hit[1]
 
 
 def _bn_fp32(y: torch.Tensor, bn: nn.BatchNorm3d, relu: bool) -> torch.Tensor:
@@ -87,7 +102,8 @@ def knet_fast_apply(knet: KNet, vol: torch.Tensor,
 
     def fast(name, x, relu, skip=None):
         layer = _layer(knet, name)
-        y, ssum, ssq = conv(x, _dhwio(layer[0]), torch.bfloat16, True)
+        w = packed_weights(layer[0]) if kernels else _dhwio(layer[0])
+        y, ssum, ssq = conv(x, w, torch.bfloat16, True)
         return bn_apply(y, ssum, ssq, layer[1], n_valid, relu, skip)
 
     z = fast("dres0_1", z, relu=True)                 # cost0

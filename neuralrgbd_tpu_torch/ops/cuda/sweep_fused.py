@@ -5,6 +5,12 @@ computes the sample coordinates with the plain ``_sweep_pixel_coords``,
 exactly as the JAX wrapper does, and the kernel does the gather and the
 reduction. Unlike the TPU kernel it has no band precondition: it is exact
 for any pose.
+
+The features keep the JAX layouts in the signatures, ref (H, W, C) and
+srcs (V, H, W, C), but the kernel reads them through their strides: a
+channel-planar tensor seen as channels-last (``feat.permute(0, 2, 3, 1)``
+of a (V, C, H, W) tensor, as ``KVNet`` passes them) is read without a
+copy, and that layout is the one whose tap reads coalesce.
 """
 
 from __future__ import annotations
@@ -25,7 +31,8 @@ REPLACES = "neuralrgbd_tpu/ops/pallas/sweep_fused.py:185"
 launches = 0  # kernel launches; chip_smoke.py resets it around the main path
 
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_float, ctypes.c_longlong] + [ctypes.c_int] * 6
+             + [ctypes.c_int, ctypes.c_void_p])
 
 # The plain twin of ``sweep_kernel``: same signature, F.grid_sample taps.
 sweep_plain = sweep_cost_volume_from_coords
@@ -35,7 +42,8 @@ def sweep_kernel(ref_feat: torch.Tensor, src_feats: torch.Tensor,
                  coords: torch.Tensor, sigma: float, feat_dist: str = "L2",
                  keep_last_channels: int = 0):
     """``sweep_plain`` on the CUDA kernel: ref_feat (H, W, C), src_feats
-    (V, H, W, C), coords (V, D, H*W, 2), all float32 on one CUDA device."""
+    (V, H, W, C), coords (V, D, H*W, 2), all float32 on one CUDA device.
+    The features may have any non-negative strides."""
     global launches
     V, H, W, C = src_feats.shape
     D = coords.shape[1]
@@ -53,16 +61,19 @@ def sweep_kernel(ref_feat: torch.Tensor, src_feats: torch.Tensor,
             raise ValueError(f"{NAME}: {name} must be float32 {shape} on one "
                              f"CUDA device, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
-    ref = ref_feat.contiguous()
-    src = src_feats.contiguous()
+    for name, t in (("ref_feat", ref_feat), ("src_feats", src_feats)):
+        if min(t.stride()) < 0 or max(t.stride()[-3:]) >= 2**31:
+            raise ValueError(f"{NAME}: {name} strides {t.stride()} must be "
+                             f"non-negative, and below 2^31 within an image")
     crd = coords.contiguous()
     cost = torch.empty((D, H, W), dtype=torch.float32, device=dev)
     kept = (torch.empty((V, D, H, W, k), dtype=torch.float32, device=dev)
             if k else None)
     fn = build.kernel_function(NAME, _ARGTYPES)
-    err = fn(src.data_ptr(), ref.data_ptr(), crd.data_ptr(), cost.data_ptr(),
-             kept.data_ptr() if k else None, V, D, H, W, C, k,
-             int(feat_dist == "L1"), float(sigma), dev.index,
+    err = fn(src_feats.data_ptr(), ref_feat.data_ptr(), crd.data_ptr(),
+             cost.data_ptr(), kept.data_ptr() if k else None, V, D, H, W, C,
+             k, int(feat_dist == "L1"), float(sigma), *src_feats.stride(),
+             *ref_feat.stride(), dev.index,
              torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch(NAME, err)
     launches += 1

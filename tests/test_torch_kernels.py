@@ -12,6 +12,12 @@ arithmetic, FMA contraction only). The conv kernel and its twin sum the
 same exact bf16 products in fp32 in another order: rtol 1e-5 on the fp32
 output and on the statistics (atol scaled by the sum of |terms|), and
 one bf16 ulp (rtol 8e-3) on the bf16 output.
+
+The CPU tests also hold the Python side of the kernels' designs: the conv
+weight packing (a bf16 layout, so exact both ways), the conv's tile walk
+(every voxel once), and the sweep on channel-planar features seen through
+strides (the plain twin's sums over channels may run in another order on
+another layout: rtol and atol 1e-6).
 """
 
 import math
@@ -27,7 +33,8 @@ from neuralrgbd_tpu_torch.ops.cuda import conv3d as kconv
 from neuralrgbd_tpu_torch.ops.cuda import resample as kresample
 from neuralrgbd_tpu_torch.ops.cuda import sweep_fused as ksweep
 from neuralrgbd_tpu_torch.ops.cuda.conv3d_dma import conv3d_dma
-from neuralrgbd_tpu_torch.ops.cuda.conv3d_pair import knet_fast_apply
+from neuralrgbd_tpu_torch.ops.cuda.conv3d_pair import (_layer, knet_fast_apply,
+                                                       packed_weights)
 from neuralrgbd_tpu_torch.ops.cuda.sweep import sweep_cost_volume_l2
 from neuralrgbd_tpu_torch.ops.sweep import _sweep_pixel_coords
 
@@ -69,6 +76,11 @@ def _sweep_inputs(V=3, D=6, h=10, w=14, C=9, device=None, seed=0):
     return ref, srcs, poses[:, :3, :3], poses[:, :3, 3], _cam(h, w, device), d
 
 
+def _planar(t):
+    """The same values stored channel-planar, seen channels-last."""
+    return t.movedim(-1, -3).contiguous().movedim(-3, -1)
+
+
 def _resample_inputs(D=8, h=10, w=14, device=None, seed=0):
     g = torch.Generator().manual_seed(seed)
     lv = torch.log_softmax(torch.randn(D, h, w, generator=g), 0).to(device)
@@ -87,6 +99,20 @@ def test_sweep_wrapper_takes_plain_on_cpu(feat_dist):
                                               feat_dist, 3)
     assert ksweep.launches == before
     assert torch.equal(cost, want_cost) and torch.equal(kept, want_kept)
+
+
+@pytest.mark.parametrize("feat_dist", ["L2", "L1"])
+def test_sweep_wrapper_reads_strided_features(feat_dist):
+    ref, srcs, Rs, ts, cam, d = _sweep_inputs()
+    pref, psrcs = _planar(ref), _planar(srcs)
+    assert pref.stride() == (14, 1, 140) and not psrcs.is_contiguous()
+    cost, kept = ksweep.sweep_cost_volume_fused(
+        pref, psrcs, Rs, ts, cam, d, 10.0, feat_dist, keep_last_channels=3)
+    coords = _sweep_pixel_coords(cam, Rs, ts, d, 10, 14)
+    want_cost, want_kept = ksweep.sweep_plain(ref, srcs, coords, 10.0,
+                                              feat_dist, 3)
+    torch.testing.assert_close(cost, want_cost, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(kept, want_kept, rtol=1e-6, atol=1e-6)
 
 
 def test_resample_wrapper_takes_plain_on_cpu():
@@ -118,6 +144,73 @@ def test_conv_wrapper_takes_plain_on_cpu(out_dtype):
     assert got[0].dtype == out_dtype and got[0].shape == (3, 4, 70, 24)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("C,N", [(8, 8), (16, 24), (64, 64), (72, 136)])
+def test_pack_weights_round_trip(C, N):
+    """The kernel's layout holds w[tap, 64 chunk + 8 g + k, 64 nt + m] at
+    [nt, tap, chunk, g, m, k], zero beyond (C, N), and unpacks exactly."""
+    _, w = _conv_inputs(C=C, N=N)
+    p = kconv.pack_weights(w)
+    nt, nc = -(-N // 64), -(-C // 64)
+    assert p.data.shape == (nt, 27, nc, 8, 64, 8) and (p.C, p.N) == (C, N)
+    assert p.data.dtype == torch.bfloat16 and p.data.is_contiguous()
+    wb = w.to(torch.bfloat16).reshape(27, C, N)
+    rng = np.random.RandomState(C + N)
+    for _ in range(50):
+        t, c, n = rng.randint(27), rng.randint(C), rng.randint(N)
+        got = p.data[n // 64, t, c // 64, c % 64 // 8, n % 64, c % 8]
+        assert got == wb[t, c, n]
+    full = torch.zeros(27, nc * 64, nt * 64, dtype=torch.bfloat16)
+    full[:, :C, :N] = wb
+    assert int((p.data != 0).sum()) == int((full != 0).sum())
+    assert torch.equal(kconv.unpack_weights(p), w.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("W", [70, 96, 100, 130, 200])
+@pytest.mark.parametrize("N", [24, 136])
+def test_conv_tiles_cover_every_voxel_once(W, N):
+    """The kernel's tiles (4 rows x 96 voxels x 64 channels; x spans with a
+    masked tail) at D = 1 and an odd H cover each output exactly once."""
+    D, H = 1, 7
+    g = kconv.tile_grid(D, H, W, N)
+    assert g.nxs == -(-W // 96) and g.nyb == 2 and g.nnt == -(-N // 64)
+    assert g.parts == 2 * g.nsp
+    count = torch.zeros(g.nnt, D, H, W, dtype=torch.int32)
+    for t in range(g.ntiles):
+        d, ys, xs, nt = kconv.tile_voxels(g, t)
+        assert ys.stop - ys.start <= 4 and xs.stop - xs.start <= 96
+        count[nt, d, ys, xs] += 1
+    assert bool((count == 1).all())
+
+
+def test_conv_wrapper_takes_packed_weights_on_cpu():
+    x, w = _conv_inputs()
+    got = kconv.conv3d(x, kconv.pack_weights(w), torch.bfloat16, True)
+    want = kconv.conv3d_plain(x, w, torch.bfloat16, True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_knet_layer_weights_packed_once():
+    """``knet_fast_apply`` packs a layer's weights once and repacks only
+    after they are written."""
+    knet = reference_init_(KNet(16, 64, device="cpu"), seed=0)
+    conv = _layer(knet, "dres2_1")[0]
+    first = packed_weights(conv)
+    assert packed_weights(conv) is first
+    with torch.no_grad():
+        conv.weight.mul_(2.0)
+    again = packed_weights(conv)
+    assert again is not first
+    assert torch.equal(again.data.float(), 2.0 * first.data.float())
+
+
+def test_conv_launcher_refuses_packed_weights_that_do_not_fit():
+    x, _ = _conv_inputs(C=8, N=8)
+    _, w = _conv_inputs(C=16, N=8)
+    with pytest.raises(ValueError, match="do not fit"):
+        kconv.conv3d_kernel(x, kconv.pack_weights(w))
 
 
 def test_kernel_launchers_refuse_cpu_tensors():
@@ -182,7 +275,9 @@ def _stats_close(got, want, terms):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(3, 4, 70, 16, 24), (2, 5, 64, 8, 8),
-                                   (4, 6, 12, 64, 64), (2, 3, 130, 72, 136)],
+                                   (4, 6, 12, 64, 64), (2, 3, 130, 72, 136),
+                                   (2, 4, 96, 64, 64), (1, 3, 200, 16, 24),
+                                   (2, 5, 33, 8, 8)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_conv_kernel_matches_plain(cuda_device, shape):
     D, H, W, C, N = shape
@@ -198,6 +293,31 @@ def test_conv_kernel_matches_plain(cuda_device, shape):
     torch.testing.assert_close(y.float(), want.float(), rtol=8e-3, atol=1e-5)
     _stats_close(ssum, wsum, want32.abs().sum((0, 1, 2)))
     _stats_close(ssq, wssq, want32.square().sum((0, 1, 2)))
+
+
+@pytest.mark.cuda
+def test_conv_kernel_takes_packed_weights(cuda_device):
+    x, w = _conv_inputs(3, 5, 96, 64, 64, device=cuda_device)
+    got = kconv.conv3d_kernel(x, kconv.pack_weights(w), torch.bfloat16, True)
+    want = kconv.conv3d_kernel(x, w, torch.bfloat16, True)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feat_dist", ["L2", "L1"])
+def test_sweep_kernel_reads_planar_features(cuda_device, feat_dist):
+    ref, srcs, Rs, ts, cam, d = _sweep_inputs(device=cuda_device)
+    coords = _sweep_pixel_coords(cam, Rs, ts, d, 10, 14)
+    got = ksweep.sweep_kernel(_planar(ref), _planar(srcs), coords, 10.0,
+                              feat_dist, 3)
+    same = ksweep.sweep_kernel(ref, srcs, coords, 10.0, feat_dist, 3)
+    want = ksweep.sweep_plain(ref, srcs, coords, 10.0, feat_dist, 3)
+    torch.cuda.synchronize()
+    for g_, s_, w_ in zip(got, same, want):
+        assert torch.equal(g_, s_)      # same sums, other addresses
+        torch.testing.assert_close(g_, w_, rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.cuda
