@@ -12,18 +12,30 @@ Phases, each printing its own lines:
    (V=4, D=64, 64x96, C=67), translation poses and 5 deg of roll per view,
    L2 and L1, on channels-last features and on channel-planar ones seen
    through strides (the layout ``KVNet`` hands it);
-4. the resample kernel against its plain twin at (64, 64, 96), and at
-   the wide shapes (64, 64, 192) and (64, 256, 384);
+4. the prediction kernel (pose inverse, coordinates, faces, trilinear
+   sample and clamp for all lanes in one launch) against its plain twin at
+   (64, 64, 96) with N=1 and N=2 (each lane its own pose and K; each lane
+   of the N=2 launch bit for bit what it gives alone), and at the wide
+   shapes (64, 64, 192) and (64, 256, 384), under four poses: the
+   synthetic pose_next, 3 and 5 deg of roll, and a translation that puts
+   part of the next frustum behind the current camera; and the
+   single-lane entry ``resample_dpv_cuda``;
 5. a T=8 rollout of the KV-Net at 384x256 (D=64, 4 source views,
    feature_dim 64, fp32, exact reference semantics) with seeded weights:
    finite outputs, log-DPVs <= 0 that sum to 1 over D, depth in
    [d_min, d_max], confidence in (0, 1], and every kernel's launch count
-   equal to T;
+   equal to T; then one step of two lanes: two sweep launches and one
+   resample launch;
 6. the same rollout on the plain versions on the card, and its first two
    frames on the CPU, against phase 5;
-7. CUDA-event timings: ms per frame on both paths, each kernel against its
-   plain twin at the operating-point shapes; and one frame under
-   torch.profiler, its 15 costliest ops by device time printed;
+7. timings: ms per frame on both paths (CUDA events), and each kernel at
+   the operating-point shapes beside its plain twin: ``device_ms`` (a CUDA
+   graph of 100 launches replayed between events), ``call_ms`` (events
+   around 20 calls from Python), ``host_us`` (host time to issue one
+   call); ``predict_next`` as the step calls it at N=1 and N=2 on both
+   paths (host clock ending in a sync); ``F.grid_sample``'s 5-D call on a
+   pre-faced volume and grid; and one frame under torch.profiler, its 15
+   costliest ops by device time printed;
 8. the conv kernel against its plain twin at the K-Net layer shape
    (64, 64, 96, 64) -> 64 (bf16 output with the BatchNorm sums, and the
    fp32 output), ``conv3d_dma`` at C=N=16 and W=100, and the gradients of
@@ -40,10 +52,15 @@ Phases, each printing its own lines:
    unpacked weights (packing on every call), each beside its plain twin,
    cuDNN's bf16 conv3d and its bound, with its TFLOP/s and share of the
    bound; the ten-layer chain, the whole K-Net, and the resample at W=192
-   and 384.
+   and 384;
+12. host syncs: ``predict_next`` as the kernel-path step calls it, run
+   under ``torch.cuda.set_sync_debug_mode("warn")``, must not sync; every
+   sync of one whole kernel-path step is printed with its place in the
+   code.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
-line. Any failed check exits non-zero before those two lines. Every
+line. Any failed check exits non-zero before those two lines. A kernel's
+``ms`` in that line is its ``device_ms``. Every
 kernel's ``bound_ms`` is computed here from the shapes it was timed at:
 the larger of its bytes (each input read once, each output written once)
 over 3.35 TB/s and its operations over the card's peak for their type
@@ -58,6 +75,8 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 
 import numpy as np
 import torch
@@ -65,9 +84,9 @@ import torch
 from neuralrgbd_tpu_torch.config import ModelConfig
 from neuralrgbd_tpu_torch.data.synthetic import synthetic_batch
 from neuralrgbd_tpu_torch.infer.rollout import make_rollout
-from neuralrgbd_tpu_torch.infer.step import make_infer_step
+from neuralrgbd_tpu_torch.infer.step import make_infer_step, predict_next
 from neuralrgbd_tpu_torch.models.kvnet import KVNet
-from neuralrgbd_tpu_torch.ops.camera import camera_from_K
+from neuralrgbd_tpu_torch.ops.camera import Camera, camera_from_K
 from neuralrgbd_tpu_torch.ops.cuda import build
 from neuralrgbd_tpu_torch.ops.cuda import conv3d as kconv
 from neuralrgbd_tpu_torch.ops.cuda import resample as kresample
@@ -76,8 +95,11 @@ from neuralrgbd_tpu_torch.ops.cuda.conv3d_dma import conv3d_dma
 from neuralrgbd_tpu_torch.ops.cuda.conv3d_pair import (_layer, knet_fast_apply,
                                                        packed_weights)
 from neuralrgbd_tpu_torch.ops.cuda.sweep import sweep_cost_volume_l2
-from neuralrgbd_tpu_torch.ops.dpv import uniform_dpv
+from neuralrgbd_tpu_torch.ops.dpv import _set_vol_border, uniform_dpv
+from neuralrgbd_tpu_torch.ops.sampling import _pixel_to_normalized
 from neuralrgbd_tpu_torch.ops.sweep import _sweep_pixel_coords
+from neuralrgbd_tpu_torch.utils.timing import (call_ms, device_ms, host_ms,
+                                               host_us)
 
 CFG = ModelConfig()          # feature_dim 64, D=64, t_win_r=2, fp32, exact
 IMG_HW = (256, 384)
@@ -86,7 +108,12 @@ SEED = 0
 KERNELS = {"sweep_fused": ksweep, "resample": kresample, "conv3d": kconv}
 # Kernel vs plain twin: the twins go through F.grid_sample, which maps pixel
 # coords to [-1, 1] and back; at widths up to 384 px that moves a coordinate
-# by ~1e-4 px, i.e. ~1e-4 in O(1) sampled values.
+# by ~1e-4 px, i.e. ~1e-4 in O(1) sampled values. The prediction kernel's
+# twin takes the same 8 taps at the pixel coordinates, without that round
+# trip, and the kernel rounds the inverse, the coordinates and the tap sum
+# product by product as the twin's torch ops do (no FMA contraction), so
+# they agree to the last bit unless a torch op rounds otherwise; the
+# resample keeps the grid_sample standard all the same.
 TOL = {"cost": (1e-4, 1e-3), "kept": (1e-4, 5e-4), "resample": (1e-4, 5e-4)}
 # Kernel path vs plain path through 8 recurrent frames (depth in m).
 ROLLOUT_TOL = {"depth": 1e-2, "confidence": 1e-2}
@@ -123,20 +150,6 @@ def within(got, want, rtol, atol) -> bool:
     return bool(((got - want).abs() <= atol + rtol * want.abs()).all())
 
 
-def cuda_ms(fn, reps: int = 20) -> float:
-    """Mean ms per call over ``reps`` calls, after two warm-up calls."""
-    for _ in range(2):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def phase_device() -> torch.device:
     print("phase 1: device", flush=True)
     if not torch.cuda.is_available():
@@ -168,11 +181,13 @@ def phase_build() -> None:
           f"memory per block", flush=True)
 
 
-def _K(h: int, w: int) -> np.ndarray:
-    """synthetic_batch's intrinsics (60 x 48 deg fov) at an h x w grid."""
-    return np.array([[w / 2 / math.tan(math.radians(30)), 0, w / 2],
-                     [0, h / 2 / math.tan(math.radians(24)), h / 2],
-                     [0, 0, 1]], np.float32)
+def _K(h: int, w: int, wider: float = 0.0) -> np.ndarray:
+    """synthetic_batch's intrinsics (60 x 48 deg fov, each ``wider`` deg
+    wider) at an h x w grid."""
+    return np.array(
+        [[w / 2 / math.tan(math.radians(30 + wider / 2)), 0, w / 2],
+         [0, h / 2 / math.tan(math.radians(24 + wider / 2)), h / 2],
+         [0, 0, 1]], np.float32)
 
 
 def _roll_poses(V: int, degrees: float, device) -> torch.Tensor:
@@ -236,36 +251,83 @@ def phase_sweep(device, errs) -> None:
                       f"{e_kept:.3e}")
 
 
-def resample_inputs(device, D, h, w):
-    g = torch.Generator().manual_seed(SEED)
-    lv = torch.log_softmax(torch.randn(D, h, w, generator=g), 0).to(device)
-    rel = torch.linalg.inv(torch.from_numpy(
-        synthetic_batch(CFG, seed=SEED)[0]["pose_next"][0]))
-    rel = (rel @ _roll_poses(1, 3.0, "cpu")[0]).to(device)
-    cam = camera_from_K(_K(h, w), device)
-    d = torch.as_tensor(CFG.d_candi, device=device)
-    return (lv, *kresample.resample_pixel_coords(cam, rel, d, h, w))
+def _pose_next(kind: str) -> np.ndarray:
+    """A current-ref -> next-ref pose of phase 4."""
+    pose = synthetic_batch(CFG, seed=SEED)[0]["pose_next"][0]
+    if kind == "synthetic pose_next":
+        return pose
+    if kind.startswith("roll"):
+        return pose @ _roll_poses(1, float(kind.split()[1]), "cpu")[0].numpy()
+    # the next camera 1 m behind this one: its planes at d <= 1 m lie
+    # behind the current camera (z <= 0, where the 1e-10 keeps z from 0)
+    assert kind == "behind the camera"
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, 3] = [0.05, -0.03, 1.0]
+    return pose
+
+
+POSES = ("synthetic pose_next", "roll 3 deg", "roll 5 deg",
+         "behind the camera")
+
+
+def resample_inputs(device, D, h, w, kinds=POSES[:1], seed=SEED):
+    """(log-DPV (N, D, h, w), pose_next (N, 4, 4), K (N, 3, 3), d_candi):
+    one lane per pose kind, lane n with a fov 4n deg wider."""
+    g = torch.Generator().manual_seed(seed)
+    N = len(kinds)
+    lv = torch.log_softmax(torch.randn(N, D, h, w, generator=g), 1)
+    poses = np.stack([_pose_next(k) for k in kinds])
+    Ks = np.stack([_K(h, w, 4 * n) for n in range(N)])
+    return (lv.to(device), torch.from_numpy(poses).to(device),
+            torch.from_numpy(Ks).to(device),
+            torch.as_tensor(CFG.d_candi, device=device))
 
 
 def phase_resample(device, errs) -> None:
-    print("phase 4: resample kernel vs plain twin", flush=True)
+    print("phase 4: prediction kernel vs plain twin", flush=True)
     pad = math.log(1.0 / CFG.ndepth)
     for shape in ((CFG.ndepth, 64, 96), (CFG.ndepth, 64, 192),
                   (CFG.ndepth, 256, 384)):
-        lv, cx, cy, cz = resample_inputs(device, *shape)
-        got = kresample.resample_kernel(lv, cx, cy, cz, pad)
-        want = kresample.resample_plain(lv, cx, cy, cz, pad)
+        for kind in POSES:
+            args = resample_inputs(device, *shape, kinds=(kind,))
+            got = kresample.predict_next_cuda(*args, pad)
+            want = kresample.predict_next_plain(*args, pad)
+            torch.cuda.synchronize()
+            e = max_err(got, want)
+            errs.append(e)
+            check(within(got, want, *TOL["resample"]),
+                  f"predict_next {shape} N=1, {kind}: max|err| {e:.3e}")
+    for kinds in (POSES[:2], POSES[2:]):
+        args = resample_inputs(device, CFG.ndepth, 64, 96, kinds)
+        before = kresample.launches
+        got = kresample.predict_next_cuda(*args, pad)
+        launched = kresample.launches - before
+        want = kresample.predict_next_plain(*args, pad)
+        alone = [kresample.predict_next_cuda(*(a[n:n + 1] for a in args[:3]),
+                                             args[3], pad) for n in range(2)]
         torch.cuda.synchronize()
         e = max_err(got, want)
         errs.append(e)
-        check(within(got, want, *TOL["resample"]),
-              f"resample {shape}: max|err| {e:.3e}")
+        check(launched == 1 and within(got, want, *TOL["resample"])
+              and all(torch.equal(a[0], got[n]) for n, a in enumerate(alone)),
+              f"predict_next (64, 64, 96) N=2 ({kinds[0]}; {kinds[1]}, fov "
+              f"+4 deg): {launched} launch, max|err| {e:.3e}, each lane "
+              f"equal to its N=1 launch")
+    lv, poses, Ks, d = resample_inputs(device, CFG.ndepth, 64, 96, POSES[1:2])
+    rel = torch.linalg.inv(poses[0])
+    got = kresample.resample_dpv_cuda(lv[0], rel, Camera(K=Ks[0]), d, pad)
+    want = kresample.resample_plain(lv, rel[None], Ks, d, False, pad)[0]
+    torch.cuda.synchronize()
+    e = max_err(got, want)
+    errs.append(e)
+    check(within(got, want, *TOL["resample"]),
+          f"resample_dpv_cuda (64, 64, 96), roll 3 deg: max|err| {e:.3e}")
 
 
-def frames_on(device, t_frames: int):
+def frames_on(device, t_frames: int, n_lanes: int = 1):
     keys = ("ref", "srcs", "poses", "K", "pose_next")
-    steps = [synthetic_batch(CFG, img_hw=IMG_HW, seed=SEED + t)[0]
-             for t in range(t_frames)]
+    steps = [synthetic_batch(CFG, n_lanes=n_lanes, img_hw=IMG_HW,
+                             seed=SEED + t)[0] for t in range(t_frames)]
     return {k: torch.from_numpy(np.stack([s[k] for s in steps])).to(device)
             for k in keys}
 
@@ -319,6 +381,16 @@ def phase_rollout(model, device) -> tuple:
     frames = frames_on(device, T)
     launches, depth, conf = check_rollout(
         model, frames, False, {"sweep_fused": T, "resample": T, "conv3d": 0})
+    two = {k: v[0] for k, v in frames_on(device, 1, n_lanes=2).items()}
+    before = {name: mod.launches for name, mod in KERNELS.items()}
+    make_infer_step(CFG)(model, two, bv0_on(device).expand(2, -1, -1, -1),
+                         [False, False])
+    torch.cuda.synchronize()
+    counts = {name: mod.launches - before[name]
+              for name, mod in KERNELS.items()}
+    check(counts == {"sweep_fused": 2, "resample": 1, "conv3d": 0},
+          f"one step of 2 lanes: launches {counts} (expected 2 sweeps and "
+          f"1 resample for both lanes)")
     return launches, frames, depth, conf
 
 
@@ -383,11 +455,13 @@ def sweep_bound(ref, srcs, coords, keep: int) -> tuple[float, str]:
     return bound(nbytes, 11.0 * V * D * HW * C, "fp32")
 
 
-def resample_bound(D, H, W) -> tuple[float, str]:
-    """The volume and 3 coordinate volumes read once, the output written
-    once; ~40 fp32 flops per voxel (weights and 8 FMAs)."""
-    n = D * H * W
-    return bound(4 * 5 * n, 40.0 * n, "fp32")
+def resample_bound(N, D, H, W) -> tuple[float, str]:
+    """The prediction step's function: the log-DPV read once and the
+    output written once (the matrices, K and d_candi are negligible);
+    ~60 fp32 flops per voxel (the point and its coordinates ~25, the
+    trilinear weights and 8 taps ~35)."""
+    n = N * D * H * W
+    return bound(4 * 2 * n, 60.0 * n, "fp32")
 
 
 def conv_bound(shape, N: int, out_bytes: int, with_stats: bool
@@ -402,7 +476,7 @@ def conv_bound(shape, N: int, out_bytes: int, with_stats: bool
 
 
 def phase_timing(model, device) -> dict:
-    print("phase 7: timing (CUDA events)", flush=True)
+    print("phase 7: timing", flush=True)
     runs = {True: [], False: []}
     for kernels in (False, True, True, False):
         times = frame_ms(model, device, kernels)
@@ -415,9 +489,9 @@ def phase_timing(model, device) -> dict:
           f"{per_frame[False]:.3f}", flush=True)
     ref, srcs, coords = sweep_inputs(device, translation_poses(device))
     pref, psrcs = planar(ref), planar(srcs)
-    lv, cx, cy, cz = resample_inputs(device, CFG.ndepth, 64, 96)
+    args = resample_inputs(device, CFG.ndepth, 64, 96)
     pad = math.log(1.0 / CFG.ndepth)
-    cl_ms = cuda_ms(
+    cl_ms = call_ms(
         lambda: ksweep.sweep_kernel(ref, srcs, coords, 10.0, "L2", 3))
     print(f"  sweep_fused on channels-last features: {cl_ms:.4f} ms "
           f"(the row below: planar, as KVNet passes them)", flush=True)
@@ -427,26 +501,76 @@ def phase_timing(model, device) -> dict:
             lambda: ksweep.sweep_plain(ref, srcs, coords, 10.0, "L2", 3),
             sweep_bound(ref, srcs, coords, 3)),
         "resample": (
-            lambda: kresample.resample_kernel(lv, cx, cy, cz, pad),
-            lambda: kresample.resample_plain(lv, cx, cy, cz, pad),
-            resample_bound(CFG.ndepth, 64, 96)),
+            lambda: kresample.predict_next_cuda(*args, pad),
+            lambda: kresample.predict_next_plain(*args, pad),
+            resample_bound(1, CFG.ndepth, 64, 96)),
     }
-    return {"per_frame": per_frame,
-            "kernels": {name: time_kernel(name, *c) for name, c in calls.items()}}
+    rows = {name: time_kernel(name, *c) for name, c in calls.items()}
+    rows["resample"].update(time_predict_next(device))
+    return {"per_frame": per_frame, "kernels": rows}
 
 
 def time_kernel(name, kern, plain, bound_of, library=None) -> dict:
-    """Kernel, plain twin and library call, in the order plain, kernel,
-    kernel, plain (library, library around them), beside the bound."""
-    p1, k1, k2, p2 = (cuda_ms(f) for f in (plain, kern, kern, plain))
-    lib = statistics.mean([cuda_ms(library) for _ in range(2)]) \
+    """Kernel, plain twin and library call: call times in the order plain,
+    kernel, kernel, plain (library, library around them), the kernel's
+    device time (a graph of 100 launches) and host time per call between
+    them, beside the bound. The row's ``ms`` is the device time."""
+    p1, k1 = call_ms(plain), call_ms(kern)
+    dev, host = device_ms(kern), host_us(kern)
+    k2, p2 = call_ms(kern), call_ms(plain)
+    lib = statistics.mean([call_ms(library) for _ in range(2)]) \
         if library else None
-    row = {"ms": statistics.mean((k1, k2)), "plain_ms": statistics.mean((p1, p2)),
+    row = {"ms": dev, "device_ms": dev, "call_ms": statistics.mean((k1, k2)),
+           "host_us": host, "plain_ms": statistics.mean((p1, p2)),
            "bound_ms": bound_of[0], "bound_by": bound_of[1], "library_ms": lib}
-    print(f"  {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
-          f"{p2:.4f} ms, library "
-          f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
+    print(f"  {name}: device {dev:.4f} ms, call {k1:.4f} / {k2:.4f} ms, "
+          f"host {host:.1f} us per call; plain {p1:.4f} / {p2:.4f} ms, "
+          f"library {'none' if lib is None else f'{lib:.4f} ms'}, bound "
           f"{bound_of[0]:.4f} ms ({bound_of[1]})", flush=True)
+    return row
+
+
+def time_predict_next(device) -> dict:
+    """``predict_next`` as the step calls it, at N=1 and N=2, on both paths
+    (host clock, each call ending in a sync); F.grid_sample's 5-D call on a
+    pre-faced volume with a precomputed normalized grid, the nearest single
+    PyTorch call (it samples only, so it is no ``library_ms``); and the
+    device time of a one-element fill, the floor of one graph node."""
+    row = {}
+    for N in (1, 2):
+        lv, poses, Ks, d = resample_inputs(device, CFG.ndepth, 64, 96,
+                                           POSES[:N])
+        kern = host_ms(lambda: predict_next(lv, poses, Ks, d))
+        plain = host_ms(lambda: predict_next(lv, poses, Ks, d, False))
+        row[f"predict_next_n{N}_ms"] = kern
+        row[f"predict_next_plain_n{N}_ms"] = plain
+        print(f"  predict_next as the step calls it, N={N} at (64, 64, 96): "
+              f"kernel path {kern:.4f} ms, plain path (torch.linalg.inv, "
+              f"resample_dpv per lane) {plain:.4f} ms, host clock to the "
+              f"sync", flush=True)
+    lv, poses, Ks, d = resample_inputs(device, CFG.ndepth, 64, 96)
+    D, H, W = lv.shape[1:]
+    vol = _set_vol_border(lv[0], math.log(1.0 / D))[None, None]
+    cx, cy, cz = kresample.resample_pixel_coords(
+        Camera(K=Ks[0]), torch.linalg.inv(poses[0]), d, H, W)
+    grid = torch.stack([_pixel_to_normalized(cx, W),
+                        _pixel_to_normalized(cy, H),
+                        _pixel_to_normalized(cz, D)], -1).reshape(
+                            1, D, H, W, 3)
+
+    def sample():
+        return torch.nn.functional.grid_sample(
+            vol, grid, mode="bilinear", padding_mode="border",
+            align_corners=True)
+
+    print(f"  F.grid_sample 5-D (border, align_corners) on a pre-faced "
+          f"(64, 64, 96) volume and grid: device {device_ms(sample):.4f} ms, "
+          f"call {call_ms(sample):.4f} ms", flush=True)
+    one = torch.zeros(1, device=device)
+    row["graph_node_floor_ms"] = device_ms(one.zero_)
+    print(f"  a one-element fill in the same graph timer (the floor of one "
+          f"launch there): device {row['graph_node_floor_ms']:.4f} ms",
+          flush=True)
     return row
 
 
@@ -572,7 +696,7 @@ def phase_fast(model, frames, depth) -> dict:
 
 
 def phase_fast_timing(model, device) -> dict:
-    print("phase 11: fast-path timing (CUDA events)", flush=True)
+    print("phase 11: fast-path timing", flush=True)
     runs = {True: [], False: []}
     for fast in (False, True, True, False):
         times = frame_ms(model, device, True, fast_knet=fast)
@@ -633,23 +757,76 @@ def phase_fast_timing(model, device) -> dict:
     vol = torch.randn(*KNET_LAYER[:3], CFG.kvnet_in_channels,
                       generator=torch.Generator().manual_seed(SEED)).to(device)
     with torch.no_grad():
-        k10 = cuda_ms(lambda: chain(kconv.conv3d_kernel, pw), reps=5)
-        p10 = cuda_ms(lambda: chain(kconv.conv3d_plain, w), reps=5)
-        fast = cuda_ms(lambda: knet_fast_apply(model.kv_net, vol), reps=5)
-        exact = cuda_ms(lambda: model.kv_net(vol.permute(3, 0, 1, 2)[None]),
+        k10 = call_ms(lambda: chain(kconv.conv3d_kernel, pw), reps=5)
+        p10 = call_ms(lambda: chain(kconv.conv3d_plain, w), reps=5)
+        fast = call_ms(lambda: knet_fast_apply(model.kv_net, vol), reps=5)
+        exact = call_ms(lambda: model.kv_net(vol.permute(3, 0, 1, 2)[None]),
                         reps=5)
     print(f"  ten-layer conv chain: kernel {k10:.3f} ms, plain {p10:.3f} ms, "
           f"bound {10 * row['bound_ms']:.3f} ms; whole K-Net: "
           f"knet_fast_apply {fast:.3f} ms, fp32 KNet module {exact:.3f} ms",
           flush=True)
     pad = math.log(1.0 / CFG.ndepth)
-    for W in (192, 384):
-        lv, cx, cy, cz = resample_inputs(device, CFG.ndepth, 64, W)
-        time_kernel(f"resample at (64, 64, {W})",
-                    lambda: kresample.resample_kernel(lv, cx, cy, cz, pad),
-                    lambda: kresample.resample_plain(lv, cx, cy, cz, pad),
-                    resample_bound(CFG.ndepth, 64, W))
+    for h, w in ((64, 192), (256, 384)):
+        args = resample_inputs(device, CFG.ndepth, h, w)
+        time_kernel(f"resample at (64, {h}, {w})",
+                    lambda: kresample.predict_next_cuda(*args, pad),
+                    lambda: kresample.predict_next_plain(*args, pad),
+                    resample_bound(1, CFG.ndepth, h, w))
     return {"per_frame": per_frame, "conv3d": row}
+
+
+def sync_sites(fn) -> dict:
+    """{(place in the port or this script, message): count} of the host
+    syncs ``fn`` makes, under ``torch.cuda.set_sync_debug_mode("warn")``;
+    the place is the innermost frame of the Python stack in either."""
+    sites: dict = {}
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing CUDA operation" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if "neuralrgbd_tpu_torch" in f.filename
+                  or f.filename.endswith("chip_smoke.py")]
+        where = (f"{frames[-1].filename.split('/')[-1]}:{frames[-1].lineno} "
+                 f"{frames[-1].line}") if frames else f"{filename}:{lineno}"
+        key = (where, str(message))
+        sites[key] = sites.get(key, 0) + 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sites
+
+
+def phase_syncs(model, device) -> None:
+    print("phase 12: host syncs in one kernel-path step "
+          "(torch.cuda.set_sync_debug_mode)", flush=True)
+    frames = frames_on(device, 2, n_lanes=2)
+    batch = [{k: v[t] for k, v in frames.items()} for t in range(2)]
+    step = make_infer_step(CFG)
+    out = step(model, batch[0], bv0_on(device).expand(2, -1, -1, -1),
+               [False, False])
+    d = torch.as_tensor(CFG.d_candi, device=device)
+    probe = sync_sites(lambda: torch.zeros(1, device=device).item())
+    check(len(probe) == 1, f"the sync probe sees .item(): {list(probe)}")
+    sites = sync_sites(lambda: predict_next(out.dpv, batch[1]["pose_next"],
+                                            batch[1]["K"], d))
+    check(not sites, f"predict_next (kernel path, N=2) makes no host sync "
+          f"({sum(sites.values())} seen: {list(sites)})")
+    sites = sync_sites(lambda: step(model, batch[1], out.bv_predict,
+                                    [True, True]))
+    print(f"  one kernel-path step of 2 lanes syncs "
+          f"{sum(sites.values())} time(s):", flush=True)
+    for (where, message), n in sorted(sites.items()):
+        print(f"    {n} x {where}: {message}", flush=True)
 
 
 def main() -> int:
@@ -668,6 +845,7 @@ def main() -> int:
     launches["conv3d"] = phase_fast(model, frames, depth)["conv3d"]
     fast_timing = phase_fast_timing(model, device)
     timing["kernels"]["conv3d"] = fast_timing["conv3d"]
+    phase_syncs(model, device)
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed:", *failures,
               sep="\n  ", file=sys.stderr)

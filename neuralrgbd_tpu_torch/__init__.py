@@ -11,12 +11,14 @@ Layer map:
 - ``data``        seeded synthetic windows for tests and chip runs.
 - ``ops``         camera, grid sampling, plane sweep, DPV algebra (plain torch).
 - ``ops.cuda``    hand-written CUDA C++ kernels for sm_90a (sources in
-                  ``csrc/``: the plane sweep, the DPV resample and the 3x3x3
-                  conv), each beside its plain PyTorch twin, and the fast
-                  K-Net chain on the conv kernel.
+                  ``csrc/``: the plane sweep, the DPV prediction step and
+                  the 3x3x3 conv), each beside its plain PyTorch twin, and
+                  the fast K-Net chain on the conv kernel.
 - ``models``      D-Net feature extractor, K-Net, R-Net, KVNet as ``nn.Module``s.
 - ``infer``       the per-frame inference step and the video rollout.
-- ``utils``       the JAX->torch weight bridge.
+- ``utils``       the JAX->torch weight bridge, timers for the card.
+- ``tools``       measurement scripts run on the card (kernel variants,
+                  an older kernel beside the current one).
 
 The port imports nothing of JAX or of the JAX package. Its entry points
 build on the CUDA card unless the caller names another device.

@@ -2,7 +2,8 @@
 
 One call = one temporal-window forward per lane + the Bayesian prediction
 resample for the next frame. Lanes run one at a time, so BatchNorm
-statistics are never pooled across trajectories (JAX vmaps one lane).
+statistics are never pooled across trajectories (JAX vmaps one lane); the
+prediction runs for all lanes at once, one kernel launch on the kernel path.
 """
 
 from __future__ import annotations
@@ -15,25 +16,33 @@ import torch
 from neuralrgbd_tpu_torch.config import ModelConfig
 from neuralrgbd_tpu_torch.models.kvnet import KVNet, check_supported
 from neuralrgbd_tpu_torch.ops.camera import Camera
-from neuralrgbd_tpu_torch.ops.cuda.resample import resample_dpv_cuda
+from neuralrgbd_tpu_torch.ops.cuda.resample import predict_next_cuda
 from neuralrgbd_tpu_torch.ops.dpv import (confidence_map, depth_regression,
                                           resample_dpv)
 
 
-def predict_next(dpv: torch.Tensor, pose_next: torch.Tensor, cam: Camera,
+def predict_next(dpv: torch.Tensor, pose_next: torch.Tensor, K: torch.Tensor,
                  d_candi: torch.Tensor, kernels: bool = True) -> torch.Tensor:
-    """Resample the posterior DPV into the next reference frame's frustum.
+    """Resample the posterior DPVs (N, D, h, w) into each lane's next
+    reference frame's frustum.
 
-    ``pose_next`` is the relative extrinsic current-ref -> next-ref; the
-    resample takes its inverse, pads with log(1/D) and clamps to
-    [-1000, 0]. ``kernels`` routes it through the CUDA kernel wrapper (any
-    W); False runs the plain ``ops.dpv.resample_dpv``.
+    ``pose_next`` (N, 4, 4) is the relative extrinsic current-ref ->
+    next-ref and ``K`` (N, 3, 3) the intrinsics at DPV resolution; the
+    resample takes the pose's inverse, pads with log(1/D) and clamps to
+    [-1000, 0]. ``kernels`` makes one call for all lanes,
+    ``predict_next_cuda``: the inverse, the coordinates and the sample in
+    one kernel launch, with no host sync (its plain twin for CPU tensors).
+    False runs the plain ``torch.linalg.inv`` and ``ops.dpv.resample_dpv``
+    lane by lane.
     """
-    D = dpv.shape[0]
-    rel = torch.linalg.inv(pose_next)
-    resample = resample_dpv_cuda if kernels else resample_dpv
-    return resample(dpv, rel, cam, d_candi, padding_value=math.log(1.0 / D),
-                    clamp_to=(-1000.0, 0.0))
+    D = dpv.shape[1]
+    pad, clamp = math.log(1.0 / D), (-1000.0, 0.0)
+    if kernels:
+        return predict_next_cuda(dpv, pose_next, K, d_candi, pad, clamp)
+    return torch.stack([
+        resample_dpv(lv, torch.linalg.inv(pose), Camera(K=k), d_candi,
+                     padding_value=pad, clamp_to=clamp)
+        for lv, pose, k in zip(dpv, pose_next, K)])
 
 
 class InferStepOutput(NamedTuple):
@@ -63,21 +72,25 @@ def make_infer_step(cfg: ModelConfig, kernels: bool = True,
     bv_predict (N, D, h, w); bv_valid: N host bools.
     """
     check_supported(cfg)
+    d_candis: dict = {}   # per device: copied there once (a copy syncs)
 
     @torch.no_grad()
     def infer_step(model: KVNet, batch, bv_predict, bv_valid):
-        d_candi = torch.as_tensor(cfg.d_candi, device=bv_predict.device)
+        dev = bv_predict.device
+        d_candi = d_candis.get(dev)
+        if d_candi is None:
+            d_candi = d_candis[dev] = torch.as_tensor(cfg.d_candi, device=dev)
         lanes = []
         for n, valid in enumerate(bv_valid):
-            cam = Camera(K=batch["K"][n])
             out = model(batch["ref"][n], batch["srcs"][n], batch["poses"][n],
-                        cam, d_candi, bv_predict[n], bool(valid),
-                        kernels=kernels, fast_knet=fast_knet)
-            bv_next = predict_next(out.dpv, batch["pose_next"][n], cam,
-                                   d_candi, kernels)
-            lanes.append((out.dpv, out.dpv_refined, bv_next,
+                        Camera(K=batch["K"][n]), d_candi, bv_predict[n],
+                        bool(valid), kernels=kernels, fast_knet=fast_knet)
+            lanes.append((out.dpv, out.dpv_refined,
                           depth_regression(out.dpv_refined, d_candi),
                           confidence_map(out.dpv_refined)))
-        return InferStepOutput(*(torch.stack(x) for x in zip(*lanes)))
+        dpv, dpv_refined, depth, conf = (torch.stack(x) for x in zip(*lanes))
+        bv_next = predict_next(dpv, batch["pose_next"], batch["K"], d_candi,
+                               kernels)
+        return InferStepOutput(dpv, dpv_refined, bv_next, depth, conf)
 
     return infer_step

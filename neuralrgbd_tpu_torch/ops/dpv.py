@@ -2,8 +2,9 @@
 
 The DPV is a per-pixel categorical distribution over D depth hypotheses,
 kept in log scale. ``resample_dpv`` is the Bayesian filter's prediction
-step; the main path runs it on the hand-written kernel
-``ops.cuda.resample``, whose plain twin is ``resample_from_coords`` below.
+step, as the plain path runs it (``F.grid_sample``); the main path runs
+the whole prediction step, inverse included, on the hand-written kernel
+of ``ops.cuda.resample``.
 """
 
 from __future__ import annotations

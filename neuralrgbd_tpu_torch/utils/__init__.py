@@ -1,1 +1,1 @@
-"""The JAX-to-torch weight bridge."""
+"""The JAX-to-torch weight bridge, and timers for the card."""

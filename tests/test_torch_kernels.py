@@ -7,8 +7,10 @@ held against the JAX package in ``test_torch_ops.py``.
 
 Kernel vs twin tolerance: rtol 1e-5, atol 1e-4 on the L2 cost (sums of
 ~270 squared differences of O(1) values, accumulated in another order by
-grid_sample and by the kernel), and 1e-5 on the resample (8 taps, same
-arithmetic, FMA contraction only). The conv kernel and its twin sum the
+grid_sample and by the kernel), and 1e-5 on the resample (the twin takes
+the kernel's 8 taps at its coordinates, and the kernel rounds product by
+product as the twin does: equal to the last bit unless a torch op rounds
+otherwise). The conv kernel and its twin sum the
 same exact bf16 products in fp32 in another order: rtol 1e-5 on the fp32
 output and on the statistics (atol scaled by the sum of |terms|), and
 one bf16 ulp (rtol 8e-3) on the bf16 output.
@@ -88,6 +90,15 @@ def _resample_inputs(D=8, h=10, w=14, device=None, seed=0):
     return lv, rel, _cam(h, w, device), torch.linspace(0.5, 4.0, D).to(device)
 
 
+def _lanes(D=8, h=10, w=14, device=None):
+    """Two lanes with their own DPVs, poses (3 and 6 deg of roll) and K."""
+    lv = torch.stack([_resample_inputs(D, h, w, device, seed=n)[0]
+                      for n in range(2)])
+    K = torch.stack([_cam(h, w, device).K, _cam(h, w + 2, device).K])
+    return lv, _roll_poses(2, 3.0, device), K, \
+        torch.linspace(0.5, 4.0, D).to(device)
+
+
 @pytest.mark.parametrize("feat_dist", ["L2", "L1"])
 def test_sweep_wrapper_takes_plain_on_cpu(feat_dist):
     ref, srcs, Rs, ts, cam, d = _sweep_inputs()
@@ -119,8 +130,8 @@ def test_resample_wrapper_takes_plain_on_cpu():
     lv, rel, cam, d = _resample_inputs()
     before = kresample.launches
     got = kresample.resample_dpv_cuda(lv, rel, cam, d, -math.log(8))
-    cx, cy, cz = kresample.resample_pixel_coords(cam, rel, d, 10, 14)
-    want = kresample.resample_plain(lv, cx, cy, cz, -math.log(8))
+    want = kresample.resample_plain(lv[None], rel[None], cam.K[None], d,
+                                    False, -math.log(8))[0]
     assert kresample.launches == before
     assert torch.equal(got, want)
     assert got.max() <= 0 and got.min() >= -1000
@@ -219,10 +230,9 @@ def test_kernel_launchers_refuse_cpu_tensors():
     coords = _sweep_pixel_coords(cam, Rs, ts, d, 10, 14)
     with pytest.raises(ValueError, match="CUDA"):
         ksweep.sweep_kernel(ref, srcs, coords, 10.0)
-    lv, rel, cam, d = _resample_inputs()
-    cx, cy, cz = kresample.resample_pixel_coords(cam, rel, d, 10, 14)
+    lv, poses, K, d = _lanes()
     with pytest.raises(ValueError, match="CUDA"):
-        kresample.resample_kernel(lv, cx, cy, cz, -math.log(8))
+        kresample.resample_kernel(lv, poses, K, d, True, -math.log(8))
     x, w = _conv_inputs()
     with pytest.raises(ValueError, match="CUDA"):
         kconv.conv3d_kernel(x, w)
@@ -248,22 +258,34 @@ def test_sweep_kernel_matches_plain(cuda_device, feat_dist, keep):
 @pytest.mark.cuda
 @pytest.mark.parametrize("w", [14, 200])
 def test_resample_kernel_matches_plain(cuda_device, w):
-    lv, rel, cam, d = _resample_inputs(w=w, device=cuda_device)
-    cx, cy, cz = kresample.resample_pixel_coords(cam, rel, d, 10, w)
-    for clamp in ((-1000.0, 0.0), None):
-        got = kresample.resample_kernel(lv, cx, cy, cz, -math.log(8), clamp)
-        want = kresample.resample_plain(lv, cx, cy, cz, -math.log(8), clamp)
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    """Two lanes in one launch, with and without the inverse and the clamp;
+    each lane bit for bit what it gives alone."""
+    lv, poses, K, d = _lanes(w=w, device=cuda_device)
+    for invert in (True, False):
+        for clamp in ((-1000.0, 0.0), None):
+            before = kresample.launches
+            got = kresample.resample_kernel(lv, poses, K, d, invert,
+                                            -math.log(8), clamp)
+            assert kresample.launches == before + 1
+            want = kresample.resample_plain(lv, poses, K, d, invert,
+                                            -math.log(8), clamp)
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+            one = kresample.resample_kernel(lv[1:], poses[1:], K[1:], d,
+                                            invert, -math.log(8), clamp)
+            assert torch.equal(one[0], got[1])
 
 
 @pytest.mark.cuda
 def test_kernel_launchers_check_inputs(cuda_device):
-    lv, rel, cam, d = _resample_inputs(device=cuda_device)
-    cx, cy, cz = kresample.resample_pixel_coords(cam, rel, d, 10, 14)
+    lv, poses, K, d = _lanes(device=cuda_device)
+    pad = -math.log(8)
     with pytest.raises(ValueError, match="float32"):
-        kresample.resample_kernel(lv.double(), cx, cy, cz, -math.log(8))
+        kresample.resample_kernel(lv.double(), poses, K, d, True, pad)
     with pytest.raises(ValueError, match="one CUDA device"):
-        kresample.resample_kernel(lv, cx.cpu(), cy, cz, -math.log(8))
+        kresample.resample_kernel(lv, poses.cpu(), K, d, True, pad)
+    with pytest.raises(ValueError, match="contiguous"):
+        kresample.resample_kernel(lv.transpose(2, 3).contiguous()
+                                  .transpose(2, 3), poses, K, d, True, pad)
 
 
 def _stats_close(got, want, terms):
