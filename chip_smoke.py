@@ -56,7 +56,32 @@ Phases, each printing its own lines:
 12. host syncs: ``predict_next`` as the kernel-path step calls it, run
    under ``torch.cuda.set_sync_debug_mode("warn")``, must not sync; every
    sync of one whole kernel-path step is printed with its place in the
-   code.
+   code;
+13. the TF32 guard: T=4 rollouts with the global TF32 flags off, at
+   PyTorch's defaults (cuDNN's on), all on and off again; after each the
+   flags read as the caller left them. With deterministic cuDNN algorithms
+   all four are equal bit for bit; with cuDNN's default choice their
+   run-to-run spread is printed. Also printed: the size of the TF32
+   deviation (``tf32=True``), ms per frame with and without deterministic
+   algorithms, and the step's ops that have no deterministic
+   implementation;
+14. the production loop: a 40-frame ``write_plane_scene`` (640x480) on disk,
+   phase 5's weights saved as a reference-style ``.tar``, and the port's
+   ``cli.test_kvnet.main`` on them at the operating point on the card: the
+   export contract (35 frames, every file, ``scene_path_info.txt``), depth
+   in [d_min, d_max] and confidence <= 1 in the pgm units, 35 launches of
+   the sweep and the resample kernels; the loop's ms per frame (frames 2
+   on; CUDA events after each step, whose intervals are the frame period
+   the card sees) beside the rollout's, in turns (loop, rollout, loop,
+   rollout, loop, rollout), the host time of each step call and of the
+   main thread between steps, and the decode and export threads' times;
+   the first 8 frames' maps against ``_q16`` of ``make_rollout`` on the
+   same windows within 1 unit, and all 35 equal (both with deterministic
+   cuDNN algorithms); the maps' run-to-run spread; and the main thread's
+   host syncs per frame in one more loop run;
+15. ``cli.evaluate`` on the same scene and checkpoint: one JSON line with
+   finite metrics and n_valid > 0 (the weights are random: no accuracy
+   threshold).
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Any failed check exits non-zero before those two lines. A kernel's
@@ -69,11 +94,16 @@ over 3.35 TB/s and its operations over the card's peak for their type
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 import traceback
 import warnings
@@ -81,8 +111,16 @@ import warnings
 import numpy as np
 import torch
 
+from neuralrgbd_tpu_torch.cli import evaluate as cli_evaluate
+from neuralrgbd_tpu_torch.cli import test_kvnet as cli_test_kvnet
 from neuralrgbd_tpu_torch.config import ModelConfig
-from neuralrgbd_tpu_torch.data.synthetic import synthetic_batch
+from neuralrgbd_tpu_torch.data.scannet import make_trajectory
+from neuralrgbd_tpu_torch.data.synthetic import (synthetic_batch,
+                                                 write_plane_scene)
+from neuralrgbd_tpu_torch.data.trajectory import window_batch
+from neuralrgbd_tpu_torch.infer import loop as loop_mod
+from neuralrgbd_tpu_torch.infer import rollout as rollout_mod
+from neuralrgbd_tpu_torch.infer.export import read_pgm
 from neuralrgbd_tpu_torch.infer.rollout import make_rollout
 from neuralrgbd_tpu_torch.infer.step import make_infer_step, predict_next
 from neuralrgbd_tpu_torch.models.kvnet import KVNet
@@ -132,6 +170,14 @@ KNET_LAYER = (CFG.ndepth, IMG_HW[0] // 4, IMG_HW[1] // 4, CFG.kv_feature_dim)
 # Published peaks of one H100 SXM (dense) and its memory rate.
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
+# PyTorch's own TF32 switches (cuDNN, cuBLAS), read before phase 1 sets both
+# off for the whole script
+TORCH_TF32_DEFAULTS = (torch.backends.cudnn.allow_tf32,
+                       torch.backends.cuda.matmul.allow_tf32)
+# Phase 14's scene: T_LOOP refs of a 40-frame trajectory (t_win_r = 2)
+SCENE_FRAMES = 40
+T_LOOP = SCENE_FRAMES - 2 * CFG.t_win_r - 1
+CARD: list[str] = []      # nvidia-smi's "name, power.limit", from phase 1
 
 failures: list[str] = []
 
@@ -158,7 +204,8 @@ def phase_device() -> torch.device:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    CARD.append(smi.stdout.strip().splitlines()[0])
+    print(CARD[0], flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"  torch {torch.__version__} cuda {torch.version.cuda} "
@@ -778,12 +825,14 @@ def phase_fast_timing(model, device) -> dict:
 
 def sync_sites(fn) -> dict:
     """{(place in the port or this script, message): count} of the host
-    syncs ``fn`` makes, under ``torch.cuda.set_sync_debug_mode("warn")``;
-    the place is the innermost frame of the Python stack in either."""
+    syncs ``fn`` makes on the main thread, under
+    ``torch.cuda.set_sync_debug_mode("warn")``; the place is the innermost
+    frame of the Python stack in either."""
     sites: dict = {}
 
     def record(message, category, filename, lineno, file=None, line=None):
-        if "synchronizing CUDA operation" not in str(message):
+        if ("synchronizing CUDA operation" not in str(message)
+                or threading.current_thread() is not threading.main_thread()):
             return
         frames = [f for f in traceback.extract_stack()[:-1]
                   if "neuralrgbd_tpu_torch" in f.filename
@@ -829,6 +878,374 @@ def phase_syncs(model, device) -> None:
         print(f"    {n} x {where}: {message}", flush=True)
 
 
+def _set_tf32(flags) -> None:
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
+        = flags
+
+
+def _tf32() -> tuple:
+    return (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+
+
+def tf32_rollouts(model, frames, device) -> list:
+    """T=4 rollouts under the caller's flags off, at PyTorch's defaults, all
+    on and off again: [(name, (depth, confidence, prediction))]."""
+    runs = []
+    for name, flags in (("off", (False, False)),
+                        ("PyTorch's defaults", TORCH_TF32_DEFAULTS),
+                        ("all on", (True, True)), ("off again", (False, False))):
+        _set_tf32(flags)
+        out = make_rollout(CFG)(model, frames, bv0_on(device), [False])
+        torch.cuda.synchronize()
+        check(_tf32() == flags, f"flags {name} {flags}: after the rollout "
+              f"they read {_tf32()}")
+        runs.append((name, out))
+    return runs
+
+
+def phase_tf32(model, device) -> None:
+    print(f"phase 13: TF32 guard, a T=4 rollout at {IMG_HW[1]}x{IMG_HW[0]} "
+          f"under the caller's global flags (cudnn, matmul); PyTorch's "
+          f"defaults here: {TORCH_TF32_DEFAULTS}", flush=True)
+    frames = frames_on(device, 4)
+    cudnn = torch.backends.cudnn
+    saved = _tf32(), cudnn.deterministic
+    # cuDNN may pick algorithms that differ run to run (atomics); bit
+    # equality can only hold with deterministic ones, so the checks run
+    # there, the "off again" run being the control
+    for deterministic in (False, True):
+        cudnn.deterministic = deterministic
+        print(f"  torch.backends.cudnn.deterministic = {deterministic}",
+              flush=True)
+        runs = tf32_rollouts(model, frames, device)
+        for name, out in runs[1:]:
+            same = all(torch.equal(a, b) for a, b in zip(out, runs[0][1]))
+            e = max_err(out[0], runs[0][1][0])
+            what = (f"global flags {name}: depth, confidence and prediction "
+                    f"equal the flags-off rollout bit for bit (max|depth "
+                    f"err| {e:.3e} m)")
+            if deterministic:
+                check(same, what)
+            else:
+                print(f"  {'equal' if same else 'not equal'}: {what}",
+                      flush=True)
+    _set_tf32((False, False))
+    depth, conf, _ = make_rollout(CFG, tf32=True)(model, frames,
+                                                  bv0_on(device), [False])
+    torch.cuda.synchronize()
+    check(_tf32() == (False, False), f"tf32=True rollout leaves the flags as "
+          f"the caller set them: {_tf32()}")
+    err = (depth - runs[0][1][0]).abs()
+    print(f"  the deviation TF32 makes (tf32=True vs fp32, deterministic, "
+          f"4 frames): depth max {float(err.max()):.3e} m, mean "
+          f"{float(err.mean()):.3e} m; confidence max "
+          f"{max_err(conf, runs[0][1][1]):.3e}", flush=True)
+    times = {False: [], True: []}
+    for deterministic in (False, True, True, False):
+        cudnn.deterministic = deterministic
+        times[deterministic] += frame_ms(model, device, True)
+    print(f"  ms per frame (median of {len(times[True])} frames, events "
+          f"around each step): cudnn.deterministic False "
+          f"{statistics.median(times[False]):.3f}, True "
+          f"{statistics.median(times[True]):.3f}", flush=True)
+    cudnn.deterministic = False
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            make_infer_step(CFG)(model, {k: v[1] for k, v in frames.items()},
+                                 bv0_on(device), [True])
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    ops = sorted({str(w.message).split("\n")[0][:160] for w in caught})
+    print(f"  ops of a step without a deterministic implementation "
+          f"(torch.use_deterministic_algorithms, warn_only): {ops or 'none'}",
+          flush=True)
+    _set_tf32(saved[0])
+    cudnn.deterministic = saved[1]
+
+
+class StepProbe:
+    """Wraps ``make_infer_step`` where ``module`` calls it: the host time
+    of each step call, when it started, and a CUDA event recorded after
+    it. Consecutive events are a frame period as the card sees it: the
+    step's work plus whatever the host issued, or failed to issue, between
+    two steps. On a host-bound frame the period is the step's host time
+    plus the caller's host time between two steps (``between_ms``)."""
+
+    def __init__(self, module):
+        self.module, self.make = module, module.make_infer_step
+        self.host_ms: list[float] = []
+        self.starts: list[float] = []
+        self.events: list = []
+
+    def __enter__(self):
+        def make(*args, **kwargs):
+            step = self.make(*args, **kwargs)
+
+            def timed(*a, **k):
+                t = time.perf_counter()
+                self.starts.append(t)
+                out = step(*a, **k)
+                self.host_ms.append(1e3 * (time.perf_counter() - t))
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                self.events.append(ev)
+                return out
+            return timed
+
+        self.module.make_infer_step = make
+        return self
+
+    def __exit__(self, *exc):
+        self.module.make_infer_step = self.make
+
+    def frame_ms(self) -> list[float]:
+        """Frame periods of frames 1.. (frame 0 has no predecessor)."""
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in zip(self.events,
+                                                  self.events[1:])]
+
+    def between_ms(self) -> list[float]:
+        """The caller's host ms between the end of step k and the start of
+        step k+1, for frames 1.."""
+        return [1e3 * (b - a) - h for a, b, h in zip(
+            self.starts, self.starts[1:], self.host_ms)]
+
+
+def loop_args(root: str, ckpt: str, res_dir: str) -> list[str]:
+    """The CLI flags of phases 14 and 15: the operating point, spelled out."""
+    return ["--dataset", "scannet", "--dataset_path", root,
+            "--model_path", ckpt, "--res_dir", res_dir, "--exp_name", "loop",
+            "--ndepth", str(CFG.ndepth), "--feature_dim", str(CFG.feature_dim),
+            "--d_min", str(CFG.d_min), "--d_max", str(CFG.d_max),
+            "--t_win", str(CFG.t_win_r), "--img_width", str(IMG_HW[1]),
+            "--img_height", str(IMG_HW[0]), "--device", "cuda"]
+
+
+def quiet(fn, *args, **kwargs):
+    """Run ``fn`` with its standard output captured; return (result, out)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn(*args, **kwargs)
+    return result, buf.getvalue()
+
+
+def check_contract(out_dir: str) -> None:
+    files = set(os.listdir(out_dir))
+    want = {f"{p}_{i:05d}.{ext}" for i in range(T_LOOP)
+            for p, ext in (("img", "png"), ("d", "pgm"), ("conf", "pgm"))}
+    check(files == want | {"scene_path_info.txt"},
+          f"the export contract: {len(want)} files for {T_LOOP} frames and "
+          f"scene_path_info.txt ({len(files)} files; missing "
+          f"{sorted(want - files)[:4]}, extra "
+          f"{sorted(files - want - {'scene_path_info.txt'})[:4]})")
+    rows = open(os.path.join(out_dir, "scene_path_info.txt")).read() \
+        .splitlines()
+    t = CFG.t_win_r
+    check(len(rows) == T_LOOP + 1 and rows[0] == "scene0000_00" and all(
+        r.split("  ")[0] == str(i) and r.endswith(
+            f"frame-{5 * (i + t):06d}.color.jpg")
+        for i, r in enumerate(rows[1:])),
+        f"scene_path_info.txt: a header and {T_LOOP} rows in frame order "
+        f"({len(rows)} lines)")
+    d = np.stack([read_pgm(os.path.join(out_dir, f"d_{i:05d}.pgm"))
+                  for i in range(T_LOOP) if f"d_{i:05d}.pgm" in files])
+    c = np.stack([read_pgm(os.path.join(out_dir, f"conf_{i:05d}.pgm"))
+                  for i in range(T_LOOP) if f"conf_{i:05d}.pgm" in files])
+    lo, hi = 1000 * CFG.d_min, 1000 * CFG.d_max
+    check(d.shape[1:] == IMG_HW and d.min() >= lo - 1 and d.max() <= hi,
+          f"depth pgm in [{lo:.0f}, {hi:.0f}]: [{d.min()}, {d.max()}], "
+          f"shape {d.shape}")
+    check(c.max() <= 1000 and c.min() > 0,
+          f"confidence pgm in (0, 1000]: [{c.min()}, {c.max()}]")
+
+
+def rollout_windows(traj, device) -> dict:
+    """The T_LOOP windows of the loop, by ``window_batch``, on the card."""
+    keys = ("ref", "srcs", "poses", "K", "pose_next")
+    batches = [window_batch(traj, ref, CFG.t_win_r)[0]
+               for ref in range(CFG.t_win_r, CFG.t_win_r + T_LOOP)]
+    return {k: torch.from_numpy(np.stack([b[k] for b in batches])).to(device)
+            for k in keys}
+
+
+def pgm_diff(a: str, b: str, n: int | None = None) -> int:
+    """Max |difference| in units over the first n frames' d_ and conf_."""
+    n = T_LOOP if n is None else min(n, T_LOOP)
+    return max(int(np.abs(
+        read_pgm(os.path.join(a, f"{p}_{t:05d}.pgm")).astype(np.int64)
+        - read_pgm(os.path.join(b, f"{p}_{t:05d}.pgm")).astype(np.int64)).max())
+        for t in range(n) for p in ("d", "conf"))
+
+
+class ThreadTimes(contextlib.AbstractContextManager):
+    """Host ms of each call of ``module.name`` (from any thread)."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.fn, self.ms = getattr(module, name), []
+
+    def __enter__(self):
+        def timed(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return self.fn(*args, **kwargs)
+            finally:
+                self.ms.append(1e3 * (time.perf_counter() - t))
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def phase_loop(model, device, tmp: str) -> dict:
+    print(f"phase 14: the production loop through cli.test_kvnet, "
+          f"{SCENE_FRAMES}-frame write_plane_scene at 640x480 read at "
+          f"{IMG_HW[1]}x{IMG_HW[0]}", flush=True)
+    root = os.path.join(tmp, "scenes")
+    t0 = time.perf_counter()
+    write_plane_scene(root, 0, n_frames=SCENE_FRAMES)
+    ckpt = os.path.join(tmp, "kvnet.tar")
+    torch.save({"state_dict": {f"module.{k}": v.cpu()
+                               for k, v in model.state_dict().items()}}, ckpt)
+    print(f"  wrote the scene and the checkpoint in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    for mod in KERNELS.values():
+        mod.launches = 0
+    with StepProbe(loop_mod) as probe:
+        t0 = time.perf_counter()
+        _, out = quiet(cli_test_kvnet.main,
+                       loop_args(root, ckpt, os.path.join(tmp, "cli")))
+        cli_s = time.perf_counter() - t0
+    runs = {"loop": [probe], "rollout": []}
+    launches = {name: mod.launches for name, mod in KERNELS.items()}
+    print("  " + "\n  ".join(ln for ln in out.splitlines()
+                              if not ln.startswith("Finished frame")),
+          flush=True)
+    check(launches == {"sweep_fused": T_LOOP, "resample": T_LOOP,
+                       "conv3d": 0},
+          f"launches in the CLI's run: {launches} (expected {T_LOOP} sweeps "
+          f"and {T_LOOP} resamples, no conv)")
+    out_dir = os.path.join(tmp, "cli", "loop_0")
+    check_contract(out_dir)
+
+    traj = make_trajectory(0, 5, root, img_size_wh=IMG_HW[::-1],
+                           d_candi=CFG.d_candi)
+    windows = rollout_windows(traj, device)
+    loop_s = []
+    with ThreadTimes(loop_mod.pp, "load_raw") as decode, \
+            ThreadTimes(loop_mod, "export_frame") as export:
+        for turn in ("rollout", "loop", "rollout", "loop", "rollout"):
+            with StepProbe(loop_mod if turn == "loop" else rollout_mod) \
+                    as probe:
+                if turn == "rollout":
+                    make_rollout(CFG)(model, windows, bv0_on(device), [False])
+                else:
+                    t0 = time.perf_counter()
+                    loop_mod.run_trajectory(
+                        model, CFG, traj,
+                        os.path.join(tmp, f"loop{len(loop_s)}"), verbose=False)
+                    loop_s.append(time.perf_counter() - t0)
+            runs[turn].append(probe)
+    print(f"  run to run on the card (cuDNN's default algorithms): the CLI's "
+          f"maps against the next loop run's, max |diff| "
+          f"{pgm_diff(out_dir, os.path.join(tmp, 'loop0'), 8)} unit(s) over "
+          f"the first 8 frames, {pgm_diff(out_dir, os.path.join(tmp, 'loop0'))}"
+          f" over {T_LOOP}", flush=True)
+
+    # the loop against the rollout on the same windows, with deterministic
+    # cuDNN algorithms so that run-to-run noise (phase 13) stays out of it
+    torch.backends.cudnn.deterministic = True
+    try:
+        loop_mod.run_trajectory(model, CFG, traj, os.path.join(tmp, "det"),
+                                verbose=False)
+        depth, conf, _ = make_rollout(CFG)(model, windows, bv0_on(device),
+                                           [False])
+    finally:
+        torch.backends.cudnn.deterministic = False
+    errs = []
+    for name, maps in (("d", depth), ("conf", conf)):
+        for t in range(T_LOOP):
+            want = loop_mod._q16(maps[t, 0]).cpu().numpy().view(np.uint16)
+            got = read_pgm(os.path.join(tmp, "det", f"{name}_{t:05d}.pgm"))
+            errs.append((t, int(np.abs(got.astype(np.int64)
+                                       - want.astype(np.int64)).max())))
+    first = max(e for t, e in errs if t < 8)
+    check(first <= 1, f"the first 8 frames' d_/conf_ pgm against _q16 of "
+          f"make_rollout on the same windows (cudnn.deterministic): max "
+          f"|diff| {first} unit(s)")
+    check(max(e for _, e in errs) == 0, f"all {T_LOOP} frames' maps equal "
+          f"the rollout's (cudnn.deterministic; the loop normalizes as "
+          f"window_batch does): max |diff| {max(e for _, e in errs)} "
+          f"unit(s)")
+
+    # medians over frames 2.. of every run of a kind: the frame period the
+    # card sees, the step's host time, the caller's host time between steps
+    stat = {kind: {
+        "period": [t for p in probes for t in p.frame_ms()[1:]],
+        "step": [t for p in probes for t in p.host_ms[2:]],
+        "between": [t for p in probes for t in p.between_ms()[1:]],
+    } for kind, probes in runs.items()}
+    med = {kind: {k: statistics.median(v) for k, v in d.items()}
+           for kind, d in stat.items()}
+    loop_ms, roll_ms = med["loop"]["period"], med["rollout"]["period"]
+    print(f"  {CARD[0]}: ms per frame, frames 2..{T_LOOP - 1} (CUDA events "
+          f"after each step), loop {loop_ms:.3f} vs rollout {roll_ms:.3f} "
+          f"({100 * (loop_ms / roll_ms - 1):+.1f}%); per run, loop "
+          f"{[round(statistics.median(p.frame_ms()[1:]), 3) for p in runs['loop']]}"
+          f", rollout "
+          f"{[round(statistics.median(p.frame_ms()[1:]), 3) for p in runs['rollout']]}",
+          flush=True)
+    for kind in ("loop", "rollout"):
+        print(f"  {kind}, host ms per frame (medians): the step's call "
+              f"{med[kind]['step']:.3f}, the main thread between steps "
+              f"{med[kind]['between']:.3f}", flush=True)
+    print(f"  the CLI's whole run {cli_s:.2f} s (model build, checkpoint, "
+          f"{T_LOOP} frames, export); run_trajectory alone "
+          f"{[round(x, 2) for x in loop_s]} s, "
+          f"{1e3 * statistics.median(loop_s) / T_LOOP:.2f} ms per frame to "
+          f"the last file; worker threads, wall ms per call (median): "
+          f"decode (load_raw) {statistics.median(decode.ms):.2f}, export "
+          f"(export_frame) {statistics.median(export.ms):.2f}", flush=True)
+    if loop_ms > 1.1 * roll_ms:
+        d_step = med["loop"]["step"] - med["rollout"]["step"]
+        d_between = med["loop"]["between"] - med["rollout"]["between"]
+        stage = ("the step's own host time, its launches slowed by the "
+                 "loop's decode and export threads" if d_step >= d_between
+                 else "the loop's own work on the main thread between "
+                      "steps (uploads, window assembly, quantization)")
+        print(f"  the loop is {100 * (loop_ms / roll_ms - 1):.1f}% slower "
+              f"than the rollout; the host stage that accounts for it: "
+              f"{stage} (step {d_step:+.3f} ms, between steps "
+              f"{d_between:+.3f} ms per frame)", flush=True)
+
+    sites = sync_sites(lambda: loop_mod.run_trajectory(
+        model, CFG, traj, os.path.join(tmp, "sync"), verbose=False))
+    n_sync = sum(sites.values())
+    print(f"  the main thread's host syncs in one run_trajectory of "
+          f"{T_LOOP} frames: {n_sync} ({n_sync / T_LOOP:.2f} per frame)",
+          flush=True)
+    for (where, message), n in sorted(sites.items()):
+        print(f"    {n} x {where}: {message}", flush=True)
+    return {"root": root, "ckpt": ckpt}
+
+
+def phase_evaluate(loop_info: dict, tmp: str) -> None:
+    print("phase 15: cli.evaluate on the same scene and checkpoint",
+          flush=True)
+    result, out = quiet(cli_evaluate.main, loop_args(
+        loop_info["root"], loop_info["ckpt"], os.path.join(tmp, "eval")))
+    print(f"  {out.strip().splitlines()[-1]}", flush=True)
+    check(bool(result) and result.get("n_valid", 0) > 0 and all(
+        math.isfinite(v) for v in result.values()),
+          f"finite metrics over n_valid = {result.get('n_valid')} pixels")
+
+
 def main() -> int:
     device = phase_device()
     phase_build()
@@ -846,6 +1263,9 @@ def main() -> int:
     fast_timing = phase_fast_timing(model, device)
     timing["kernels"]["conv3d"] = fast_timing["conv3d"]
     phase_syncs(model, device)
+    phase_tf32(model, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_evaluate(phase_loop(model, device, tmp), tmp)
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed:", *failures,
               sep="\n  ", file=sys.stderr)

@@ -8,6 +8,7 @@ prediction runs for all lanes at once, one kernel launch on the kernel path.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple
 
@@ -45,6 +46,23 @@ def predict_next(dpv: torch.Tensor, pose_next: torch.Tensor, K: torch.Tensor,
         for lv, pose, k in zip(dpv, pose_next, K)])
 
 
+@contextlib.contextmanager
+def tf32_mode(enabled: bool):
+    """Set cuDNN's and cuBLAS's TF32 switches
+    (``torch.backends.cudnn.allow_tf32``, ``torch.backends.cuda.matmul.
+    allow_tf32``) to ``enabled`` for the body, then give both back the
+    caller's values, also when the body raises. PyTorch's own default
+    leaves cuDNN's on, which runs every fp32 conv in TF32 (a 10-bit
+    mantissa) on the card: not the fp32 reference."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = enabled
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+
 class InferStepOutput(NamedTuple):
     dpv: torch.Tensor            # (N, D, h, w) fused posterior (low res)
     dpv_refined: torch.Tensor    # (N, D, H, W) refined DPV (image res)
@@ -54,7 +72,7 @@ class InferStepOutput(NamedTuple):
 
 
 def make_infer_step(cfg: ModelConfig, kernels: bool = True,
-                    fast_knet: bool = False):
+                    fast_knet: bool = False, tf32: bool = False):
     """Returns ``infer_step(model, batch, bv_predict, bv_valid)``.
 
     ``model`` is a ``KVNet`` built from ``cfg`` with ``single_refine=True``.
@@ -64,7 +82,9 @@ def make_infer_step(cfg: ModelConfig, kernels: bool = True,
     ``fast_knet``) the K-Net convs on the CUDA kernels (their plain twins
     for CPU tensors); False runs the plain versions everywhere.
     ``fast_knet``: the K-Net on ``knet_fast_apply`` (see ``KVNet.forward``),
-    off by default as in JAX.
+    off by default as in JAX. ``tf32``: let cuDNN and cuBLAS run fp32 convs
+    and matmuls in TF32; off, the step is fp32 whatever the caller's global
+    flags say (``tf32_mode`` sets them for the step and restores them).
 
     batch dict of tensors (leading N = lanes):
       ref (N, H, W, 3), srcs (N, V, H, W, 3), poses (N, V, 4, 4) ref->src,
@@ -81,16 +101,19 @@ def make_infer_step(cfg: ModelConfig, kernels: bool = True,
         if d_candi is None:
             d_candi = d_candis[dev] = torch.as_tensor(cfg.d_candi, device=dev)
         lanes = []
-        for n, valid in enumerate(bv_valid):
-            out = model(batch["ref"][n], batch["srcs"][n], batch["poses"][n],
-                        Camera(K=batch["K"][n]), d_candi, bv_predict[n],
-                        bool(valid), kernels=kernels, fast_knet=fast_knet)
-            lanes.append((out.dpv, out.dpv_refined,
-                          depth_regression(out.dpv_refined, d_candi),
-                          confidence_map(out.dpv_refined)))
-        dpv, dpv_refined, depth, conf = (torch.stack(x) for x in zip(*lanes))
-        bv_next = predict_next(dpv, batch["pose_next"], batch["K"], d_candi,
-                               kernels)
+        with tf32_mode(tf32):
+            for n, valid in enumerate(bv_valid):
+                out = model(batch["ref"][n], batch["srcs"][n],
+                            batch["poses"][n], Camera(K=batch["K"][n]),
+                            d_candi, bv_predict[n], bool(valid),
+                            kernels=kernels, fast_knet=fast_knet)
+                lanes.append((out.dpv, out.dpv_refined,
+                              depth_regression(out.dpv_refined, d_candi),
+                              confidence_map(out.dpv_refined)))
+            dpv, dpv_refined, depth, conf = (torch.stack(x)
+                                             for x in zip(*lanes))
+            bv_next = predict_next(dpv, batch["pose_next"], batch["K"],
+                                   d_candi, kernels)
         return InferStepOutput(dpv, dpv_refined, bv_next, depth, conf)
 
     return infer_step

@@ -9,7 +9,9 @@ keys, which the port's ``KVNet`` loads with ``load_state_dict(strict=True)``.
 ``build_name_map`` and its two helpers are a copy of the JAX module's
 (``neuralrgbd_tpu/utils/torch_import.py:26-106``), held equal to it by
 ``tests/test_torch_standalone.py``: the port imports nothing of the JAX
-package.
+package. So are ``_strip_prefix`` and ``load_torch_checkpoint``, which
+read the reference's released checkpoints (``kvnet_scannet.tar``);
+``load_reference_state_dict`` loads one into the port's ``KVNet``.
 """
 
 from __future__ import annotations
@@ -146,3 +148,57 @@ def state_dict_from_jax(variables, refine_net: str = "DPV"
     if unmapped:
         raise ValueError(f"flax parameters without a torch key: {unmapped}")
     return sd
+
+
+def _strip_prefix(key: str) -> str:
+    for pre in ("module.", "model."):
+        if key.startswith(pre):
+            key = key[len(pre):]
+    return key
+
+
+def load_torch_checkpoint(path: str):
+    """Load a reference .tar checkpoint -> numpy state_dict (CPU torch)."""
+    payload = torch.load(path, map_location="cpu", weights_only=False)
+    sd = payload.get("state_dict", payload)
+    return {k: v.numpy() if hasattr(v, "numpy") else np.asarray(v)
+            for k, v in sd.items()}
+
+
+def load_reference_state_dict(model: torch.nn.Module, state_dict) -> dict:
+    """Load a reference KVNET state_dict (tensors or arrays) into the port's
+    ``KVNet``, strictly.
+
+    The keys are filtered as the JAX importer filters them
+    (``neuralrgbd_tpu/utils/torch_import.py:242-247``): ``module.`` and
+    ``model.`` prefixes stripped; ``running_*`` and ``num_batches_tracked``
+    (batch-statistics BN keeps none) and the D-Net's
+    ``d_net.feature_extraction.*`` aliases of ``feature_extractor.*``
+    dropped. Prints JAX's report line. Raises if a parameter of the model
+    would stay unloaded, or (``load_state_dict``) on a shape mismatch;
+    checkpoint keys the model has no parameter for are reported, not
+    loaded. Returns the report.
+    """
+    own = model.state_dict()
+    kept, skipped = {}, []
+    for tkey, tval in state_dict.items():
+        key = _strip_prefix(str(tkey))
+        if key.startswith("d_net.feature_extraction."):
+            continue  # alias of feature_extractor.*
+        if "num_batches_tracked" in key or "running_" in key:
+            continue
+        if key not in own:
+            skipped.append(key)
+            continue
+        kept[key] = torch.as_tensor(np.asarray(tval))
+    print(f"imported {len(kept)}/{len(own)} tensors from the torch "
+          f"checkpoint")
+    if skipped:
+        print(f"  unmatched torch keys: {skipped[:8]} ...")
+    missing = sorted(set(own) - set(kept))
+    if missing:
+        raise KeyError(f"the checkpoint leaves {len(missing)} parameter(s) "
+                       f"of the model unloaded: {missing[:8]}")
+    model.load_state_dict(kept, strict=True)
+    return {"n_imported": len(kept), "n_params_total": len(own),
+            "unmatched_torch_keys": skipped}
