@@ -37,8 +37,9 @@ Phases, each printing its own lines:
    pre-faced volume and grid; and one frame under torch.profiler, its 15
    costliest ops by device time printed;
 8. the conv kernel against its plain twin at the K-Net layer shape
-   (64, 64, 96, 64) -> 64 (bf16 output with the BatchNorm sums, and the
-   fp32 output), ``conv3d_dma`` at C=N=16 and W=100, and the gradients of
+   (64, 64, 96, 64) -> 64 and at the coarse-D K-Net's (32, 64, 96, 64)
+   (bf16 output with the BatchNorm sums, and the fp32 output),
+   ``conv3d_dma`` at C=N=16 and W=100, and the gradients of
    ``conv3d_3x3x3`` against autograd through the plain conv;
 9. ``sweep_cost_volume_l2`` on the card: the fused sweep kernel, bit for bit;
 10. the T=8 rollout with ``fast_knet=True`` (the K-Net's ten 64->64 convs on
@@ -57,14 +58,15 @@ Phases, each printing its own lines:
    under ``torch.cuda.set_sync_debug_mode("warn")``, must not sync; every
    sync of one whole kernel-path step is printed with its place in the
    code;
-13. the TF32 guard: T=4 rollouts with the global TF32 flags off, at
-   PyTorch's defaults (cuDNN's on), all on and off again; after each the
-   flags read as the caller left them. With deterministic cuDNN algorithms
-   all four are equal bit for bit; with cuDNN's default choice their
-   run-to-run spread is printed. Also printed: the size of the TF32
-   deviation (``tf32=True``), ms per frame with and without deterministic
-   algorithms, and the step's ops that have no deterministic
-   implementation;
+13. the step's numerics (``infer.step.step_numerics``): T=4 rollouts with
+   the global TF32 flags off, at PyTorch's defaults (cuDNN's on), all on,
+   off again and at the defaults again, ``cudnn.deterministic`` left at
+   PyTorch's default (this script never sets it): all five equal bit for
+   bit (the step sets TF32 off and deterministic cuDNN algorithms for
+   itself), and after each the flags read as the caller left them. Also
+   printed: the size of the TF32 deviation (``tf32=True``), ms per frame
+   of the step beside the same step with cuDNN's default algorithm choice,
+   and the step's ops that have no deterministic implementation;
 14. the production loop: a 40-frame ``write_plane_scene`` (640x480) on disk,
    phase 5's weights saved as a reference-style ``.tar``, and the port's
    ``cli.test_kvnet.main`` on them at the operating point on the card: the
@@ -75,15 +77,38 @@ Phases, each printing its own lines:
    the card sees) beside the rollout's, in turns (loop, rollout, loop,
    rollout, loop, rollout), the host time of each step call and of the
    main thread between steps, and the decode and export threads' times;
-   the first 8 frames' maps against ``_q16`` of ``make_rollout`` on the
-   same windows within 1 unit, and all 35 equal (both with deterministic
-   cuDNN algorithms); the maps' run-to-run spread; and the main thread's
-   host syncs per frame in one more loop run;
+   all 35 frames' maps equal ``_q16`` of ``make_rollout`` on the same
+   windows, and equal from one loop run to the next; and the main
+   thread's host syncs per frame in one more loop run;
 15. ``cli.evaluate`` on the same scene and checkpoint: one JSON line with
    finite metrics and n_valid > 0 (the weights are random: no accuracy
-   threshold).
+   threshold);
+16. cached features: a T=8 ``make_rollout(cache_features=True)`` on the
+   first 8 sliding windows of phase 14's scene, kernel path (phase 5's
+   checks) and plain twins (within phase 6's 1e-2); equal bit for bit to
+   a stepwise oracle that featurizes every window frame fresh; the
+   extractor called for window 0's 4 frames and then once per step; then
+   ``cli.test_kvnet --cache_features`` on the scene: its launches, the
+   export contract and all 35 frames' maps equal to the cached rollout's
+   on the same windows;
+17. the coarse-D K-Net (``coarse_knet=2``): T=8 rollouts on the exact and
+   the ``fast_knet`` path (phase 5's checks; the conv kernel launched
+   10 x (T-1) times, all at D=32), frame 0 equal bit for bit to phase 5's
+   exact path, kernel vs plain path (max 1e-2 exact; mean 1e-2 fast, its
+   convs in bf16), the deviation from the exact path printed, the conv
+   kernel timed at (32, 64, 96, 64), and ``cli.test_kvnet --knet_coarse_d
+   2``: launches, contract, maps equal to the coarse rollout's;
+18. bf16 convs (``dtype="bfloat16"``): a T=8 rollout (phase 5's checks),
+   kernel vs plain path within a 1e-2 m mean, and within a 0.05 m mean of
+   phase 5's fp32 exact path; then ms per frame of every path (exact,
+   cached, coarse-D, ``fast_knet``, coarse-D with ``fast_knet``, bf16, and
+   bf16 with its weights cast on every call, and all three flags) on
+   phase 14's windows, in turns, with the card's name and power limit;
+   and the feature extractor alone (5 frames and 1, fp32 and bf16), ms
+   and kernel launches per call.
 
-Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+Then one ``{"kernels": [...]}`` line (the conv kernel's launches: phase
+10's and phase 17's fast path) and, last, the ``{"ok": true, ...}``
 line. Any failed check exits non-zero before those two lines. A kernel's
 ``ms`` in that line is its ``device_ms``. Every
 kernel's ``bound_ms`` is computed here from the shapes it was timed at:
@@ -95,6 +120,7 @@ over 3.35 TB/s and its operations over the card's peak for their type
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -120,14 +146,18 @@ from neuralrgbd_tpu_torch.data.synthetic import (synthetic_batch,
 from neuralrgbd_tpu_torch.data.trajectory import window_batch
 from neuralrgbd_tpu_torch.infer import loop as loop_mod
 from neuralrgbd_tpu_torch.infer import rollout as rollout_mod
+from neuralrgbd_tpu_torch.infer import step as step_mod
 from neuralrgbd_tpu_torch.infer.export import read_pgm
 from neuralrgbd_tpu_torch.infer.rollout import make_rollout
-from neuralrgbd_tpu_torch.infer.step import make_infer_step, predict_next
+from neuralrgbd_tpu_torch.infer.step import (make_frame_features,
+                                             make_infer_step, predict_next)
+from neuralrgbd_tpu_torch.models import layers as layers_mod
 from neuralrgbd_tpu_torch.models.kvnet import KVNet
 from neuralrgbd_tpu_torch.ops.camera import Camera, camera_from_K
 from neuralrgbd_tpu_torch.ops.cuda import build
 from neuralrgbd_tpu_torch.ops.cuda import conv3d as kconv
 from neuralrgbd_tpu_torch.ops.cuda import resample as kresample
+from neuralrgbd_tpu_torch.ops.cuda import conv3d_pair as kpair
 from neuralrgbd_tpu_torch.ops.cuda import sweep_fused as ksweep
 from neuralrgbd_tpu_torch.ops.cuda.conv3d_dma import conv3d_dma
 from neuralrgbd_tpu_torch.ops.cuda.conv3d_pair import (_layer, knet_fast_apply,
@@ -165,8 +195,17 @@ CONV_TOL = {"fp32": (1e-5, 1e-4), "bf16": (8e-3, 1e-5), "stats": 1e-4,
 # The fast K-Net path (bf16 convs) vs the exact path, and the kernel vs the
 # plain twins on the fast path: the class of the JAX flag's own test
 # (tests/test_pallas_conv_pair.py:130), mean |depth difference| in m.
+# Also the bf16 path (dtype="bfloat16") vs the fp32 exact path.
 FAST_DEPTH_MEAN = 0.05
+# Kernel path vs plain path where convs run in bf16 (the fast coarse-D
+# K-Net, dtype="bfloat16"): a one-ulp rounding flip feeds the next layer's
+# sums and flips more (tests/test_torch_deviations.py measured it), so a
+# pixel near a tie can move far; the mean |depth difference| in m holds.
+BF16_ROLLOUT_MEAN = 1e-2
+BF16 = dataclasses.replace(CFG, dtype="bfloat16")
 KNET_LAYER = (CFG.ndepth, IMG_HW[0] // 4, IMG_HW[1] // 4, CFG.kv_feature_dim)
+# the coarse-D K-Net's layer (knet_coarse_d = 2): D/2 planes
+KNET_LAYER_D32 = (CFG.ndepth // 2, *KNET_LAYER[1:])
 # Published peaks of one H100 SXM (dense) and its memory rate.
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
@@ -174,6 +213,9 @@ HBM_BYTES_PER_S = 3.35e12
 # off for the whole script
 TORCH_TF32_DEFAULTS = (torch.backends.cudnn.allow_tf32,
                        torch.backends.cuda.matmul.allow_tf32)
+# and its cuDNN algorithm choice, which this script never sets: the step
+# sets deterministic algorithms for itself (phase 13)
+TORCH_DETERMINISTIC_DEFAULT = torch.backends.cudnn.deterministic
 # Phase 14's scene: T_LOOP refs of a 40-frame trajectory (t_win_r = 2)
 SCENE_FRAMES = 40
 T_LOOP = SCENE_FRAMES - 2 * CFG.t_win_r - 1
@@ -384,13 +426,14 @@ def bv0_on(device) -> torch.Tensor:
                        device)[None]
 
 
-def check_rollout(model, frames, fast_knet: bool, want_launches: dict):
-    """Run the kernel-path rollout with the counts set to 0 just before and
-    read just after; check the counts, shapes and value ranges, and the
-    log-DPVs of one more step (outside the counted window)."""
+def check_rollout(model, frames, want_launches: dict, cfg=CFG, **kw):
+    """Run the kernel-path rollout (``make_rollout(cfg, **kw)``) with the
+    counts set to 0 just before and read just after; check the counts,
+    shapes and value ranges, and the log-DPVs of one more step (outside
+    the counted window)."""
     for mod in KERNELS.values():
         mod.launches = 0
-    depth, conf, bv = make_rollout(CFG, fast_knet=fast_knet)(
+    depth, conf, bv = make_rollout(cfg, **kw)(
         model, frames, bv0_on(frames["ref"].device), [False])
     torch.cuda.synchronize()
     launches = {name: mod.launches for name, mod in KERNELS.items()}
@@ -411,7 +454,8 @@ def check_rollout(model, frames, fast_knet: bool, want_launches: dict):
           f"{float(conf.max()):.4f}]")
     check(bool(((bv <= 0) & (bv >= -1000)).all()),
           "prediction log-DPV in [-1000, 0]")
-    out = make_infer_step(CFG, fast_knet=fast_knet)(
+    step_kw = {k: v for k, v in kw.items() if k != "cache_features"}
+    out = make_infer_step(cfg, **step_kw)(
         model, {k: v[-1] for k, v in frames.items()}, bv, [True])
     for name in ("dpv", "dpv_refined"):
         lv = getattr(out, name)
@@ -427,7 +471,7 @@ def phase_rollout(model, device) -> tuple:
           flush=True)
     frames = frames_on(device, T)
     launches, depth, conf = check_rollout(
-        model, frames, False, {"sweep_fused": T, "resample": T, "conv3d": 0})
+        model, frames, {"sweep_fused": T, "resample": T, "conv3d": 0})
     two = {k: v[0] for k, v in frames_on(device, 1, n_lanes=2).items()}
     before = {name: mod.launches for name, mod in KERNELS.items()}
     make_infer_step(CFG)(model, two, bv0_on(device).expand(2, -1, -1, -1),
@@ -635,8 +679,14 @@ def profile_step(model, device) -> None:
              [True])
         torch.cuda.synchronize()
     print("  profile of one fused frame (kernel path):", flush=True)
-    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=15,
-                                    max_name_column_width=48), flush=True)
+    events = prof.key_averages()
+    print(events.table(sort_by="cuda_time_total", row_limit=15,
+                       max_name_column_width=48), flush=True)
+    api = sorted((e for e in events if e.key.startswith("cuda")),
+                 key=lambda e: -e.cpu_time_total)
+    print("  CUDA runtime calls of that frame (host ms, count): " + "; ".join(
+        f"{e.key} {e.cpu_time_total / 1e3:.2f} x{e.count}" for e in api[:10]),
+        flush=True)
 
 
 def conv_inputs(device, shape, N, seed=SEED):
@@ -655,27 +705,30 @@ def stats_ok(got, want, terms) -> bool:
 
 def phase_conv(device, errs) -> None:
     print(f"phase 8: conv kernel vs plain twin at the K-Net layer "
-          f"{KNET_LAYER} -> {CFG.kv_feature_dim}", flush=True)
-    x, w = conv_inputs(device, KNET_LAYER, CFG.kv_feature_dim)
-    y, ssum, ssq = kconv.conv3d_kernel(x, w, torch.bfloat16, True)
-    y32 = kconv.conv3d_kernel(x, w, torch.float32)
-    want32 = kconv.conv3d_plain(x, w, torch.float32)
-    want, wsum, wssq = kconv.conv3d_plain(x, w, torch.bfloat16, True)
-    torch.cuda.synchronize()
-    e32, e16 = max_err(y32, want32), max_err(y.float(), want.float())
-    es, eq = max_err(ssum, wsum), max_err(ssq, wssq)
-    errs += [e32, e16]
-    check(within(y32, want32, *CONV_TOL["fp32"]),
-          f"fp32 output: max|err| {e32:.3e} (|y| <= "
-          f"{float(want32.abs().max()):.2f})")
-    check(within(y.float(), want.float(), *CONV_TOL["bf16"]),
-          f"bf16 output: max|err| {e16:.3e}, "
-          f"{int((y != want).sum())} of {y.numel()} values one rounding apart")
-    check(stats_ok(ssum, wsum, want32.abs().sum((0, 1, 2)))
-          and stats_ok(ssq, wssq, wssq),
-          f"BatchNorm sums: max|err| {es:.3e} (|sum| <= "
-          f"{float(wsum.abs().max()):.1f}), sums of squares {eq:.3e} "
-          f"(<= {float(wssq.max()):.1f})")
+          f"{KNET_LAYER} -> {CFG.kv_feature_dim} and at the coarse-D "
+          f"K-Net's {KNET_LAYER_D32}", flush=True)
+    for shape in (KNET_LAYER, KNET_LAYER_D32):
+        x, w = conv_inputs(device, shape, CFG.kv_feature_dim)
+        y, ssum, ssq = kconv.conv3d_kernel(x, w, torch.bfloat16, True)
+        y32 = kconv.conv3d_kernel(x, w, torch.float32)
+        want32 = kconv.conv3d_plain(x, w, torch.float32)
+        want, wsum, wssq = kconv.conv3d_plain(x, w, torch.bfloat16, True)
+        torch.cuda.synchronize()
+        e32, e16 = max_err(y32, want32), max_err(y.float(), want.float())
+        es, eq = max_err(ssum, wsum), max_err(ssq, wssq)
+        errs += [e32, e16]
+        check(within(y32, want32, *CONV_TOL["fp32"]),
+              f"{shape} fp32 output: max|err| {e32:.3e} (|y| <= "
+              f"{float(want32.abs().max()):.2f})")
+        check(within(y.float(), want.float(), *CONV_TOL["bf16"]),
+              f"{shape} bf16 output: max|err| {e16:.3e}, "
+              f"{int((y != want).sum())} of {y.numel()} values one rounding "
+              f"apart")
+        check(stats_ok(ssum, wsum, want32.abs().sum((0, 1, 2)))
+              and stats_ok(ssq, wssq, wssq),
+              f"{shape} BatchNorm sums: max|err| {es:.3e} (|sum| <= "
+              f"{float(wsum.abs().max()):.1f}), sums of squares {eq:.3e} "
+              f"(<= {float(wssq.max()):.1f})")
 
     shape = (16, 24, 100, 16)
     x, w = conv_inputs(device, shape, 16, seed=SEED + 1)
@@ -728,8 +781,9 @@ def phase_fast(model, frames, depth) -> dict:
     print(f"phase 10: fast_knet rollout, T={T} at {IMG_HW[1]}x{IMG_HW[0]}",
           flush=True)
     launches, fdepth, _ = check_rollout(
-        model, frames, True,
-        {"sweep_fused": T, "resample": T, "conv3d": 10 * (T - 1)})
+        model, frames,
+        {"sweep_fused": T, "resample": T, "conv3d": 10 * (T - 1)},
+        fast_knet=True)
     pdepth, _, _ = make_rollout(CFG, kernels=False, fast_knet=True)(
         model, frames, bv0_on(frames["ref"].device), [False])
     torch.cuda.synchronize()
@@ -904,32 +958,45 @@ def tf32_rollouts(model, frames, device) -> list:
     return runs
 
 
+@contextlib.contextmanager
+def tf32_numerics_only(tf32: bool):
+    """``infer.step.step_numerics`` without its deterministic cuDNN
+    algorithms: phase 13 times the step with cuDNN's default choice
+    through it, and nothing else uses it."""
+    saved = _tf32()
+    _set_tf32((tf32, tf32))
+    try:
+        yield
+    finally:
+        _set_tf32(saved)
+
+
 def phase_tf32(model, device) -> None:
-    print(f"phase 13: TF32 guard, a T=4 rollout at {IMG_HW[1]}x{IMG_HW[0]} "
-          f"under the caller's global flags (cudnn, matmul); PyTorch's "
-          f"defaults here: {TORCH_TF32_DEFAULTS}", flush=True)
-    frames = frames_on(device, 4)
     cudnn = torch.backends.cudnn
-    saved = _tf32(), cudnn.deterministic
-    # cuDNN may pick algorithms that differ run to run (atomics); bit
-    # equality can only hold with deterministic ones, so the checks run
-    # there, the "off again" run being the control
-    for deterministic in (False, True):
-        cudnn.deterministic = deterministic
-        print(f"  torch.backends.cudnn.deterministic = {deterministic}",
-              flush=True)
-        runs = tf32_rollouts(model, frames, device)
-        for name, out in runs[1:]:
-            same = all(torch.equal(a, b) for a, b in zip(out, runs[0][1]))
-            e = max_err(out[0], runs[0][1][0])
-            what = (f"global flags {name}: depth, confidence and prediction "
-                    f"equal the flags-off rollout bit for bit (max|depth "
-                    f"err| {e:.3e} m)")
-            if deterministic:
-                check(same, what)
-            else:
-                print(f"  {'equal' if same else 'not equal'}: {what}",
-                      flush=True)
+    print(f"phase 13: the step's numerics, T=4 rollouts at "
+          f"{IMG_HW[1]}x{IMG_HW[0]} under the caller's global flags "
+          f"(TF32 cudnn, matmul); PyTorch's defaults here: "
+          f"{TORCH_TF32_DEFAULTS}, cudnn.deterministic "
+          f"{TORCH_DETERMINISTIC_DEFAULT}", flush=True)
+    frames = frames_on(device, 4)
+    saved = _tf32()
+    check(cudnn.deterministic == TORCH_DETERMINISTIC_DEFAULT,
+          f"this script leaves torch.backends.cudnn.deterministic at "
+          f"PyTorch's default ({cudnn.deterministic})")
+    runs = tf32_rollouts(model, frames, device)
+    _set_tf32(TORCH_TF32_DEFAULTS)
+    again = make_rollout(CFG)(model, frames, bv0_on(device), [False])
+    torch.cuda.synchronize()
+    runs.append(("PyTorch's defaults, a second run", again))
+    for name, out in runs[1:]:
+        e = max_err(out[0], runs[0][1][0])
+        check(all(torch.equal(a, b) for a, b in zip(out, runs[0][1])),
+              f"global flags {name}: depth, confidence and prediction equal "
+              f"the flags-off rollout bit for bit (max|depth err| "
+              f"{e:.3e} m)")
+    check(cudnn.deterministic == TORCH_DETERMINISTIC_DEFAULT,
+          f"after the rollouts cudnn.deterministic reads as the caller left "
+          f"it ({cudnn.deterministic})")
     _set_tf32((False, False))
     depth, conf, _ = make_rollout(CFG, tf32=True)(model, frames,
                                                   bv0_on(device), [False])
@@ -937,19 +1004,24 @@ def phase_tf32(model, device) -> None:
     check(_tf32() == (False, False), f"tf32=True rollout leaves the flags as "
           f"the caller set them: {_tf32()}")
     err = (depth - runs[0][1][0]).abs()
-    print(f"  the deviation TF32 makes (tf32=True vs fp32, deterministic, "
-          f"4 frames): depth max {float(err.max()):.3e} m, mean "
-          f"{float(err.mean()):.3e} m; confidence max "
-          f"{max_err(conf, runs[0][1][1]):.3e}", flush=True)
-    times = {False: [], True: []}
-    for deterministic in (False, True, True, False):
-        cudnn.deterministic = deterministic
-        times[deterministic] += frame_ms(model, device, True)
-    print(f"  ms per frame (median of {len(times[True])} frames, events "
-          f"around each step): cudnn.deterministic False "
-          f"{statistics.median(times[False]):.3f}, True "
-          f"{statistics.median(times[True]):.3f}", flush=True)
-    cudnn.deterministic = False
+    print(f"  the deviation TF32 makes (tf32=True vs fp32, 4 frames): depth "
+          f"max {float(err.max()):.3e} m, mean {float(err.mean()):.3e} m; "
+          f"confidence max {max_err(conf, runs[0][1][1]):.3e}", flush=True)
+    times = {"deterministic": [], "default": []}
+    for kind in ("deterministic", "default", "default", "deterministic"):
+        numerics = step_mod.step_numerics
+        if kind == "default":
+            step_mod.step_numerics = tf32_numerics_only
+        try:
+            times[kind] += frame_ms(model, device, True)
+        finally:
+            step_mod.step_numerics = numerics
+    print(f"  {CARD[0]}: ms per frame (median of "
+          f"{len(times['default'])} frames, events around each step, in "
+          f"turns): the step (deterministic cuDNN algorithms) "
+          f"{statistics.median(times['deterministic']):.3f}, cuDNN's "
+          f"default choice {statistics.median(times['default']):.3f}",
+          flush=True)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.use_deterministic_algorithms(True, warn_only=True)
@@ -963,8 +1035,7 @@ def phase_tf32(model, device) -> None:
     print(f"  ops of a step without a deterministic implementation "
           f"(torch.use_deterministic_algorithms, warn_only): {ops or 'none'}",
           flush=True)
-    _set_tf32(saved[0])
-    cudnn.deterministic = saved[1]
+    _set_tf32(saved)
 
 
 class StepProbe:
@@ -1152,35 +1223,23 @@ def phase_loop(model, device, tmp: str) -> dict:
                         os.path.join(tmp, f"loop{len(loop_s)}"), verbose=False)
                     loop_s.append(time.perf_counter() - t0)
             runs[turn].append(probe)
-    print(f"  run to run on the card (cuDNN's default algorithms): the CLI's "
-          f"maps against the next loop run's, max |diff| "
-          f"{pgm_diff(out_dir, os.path.join(tmp, 'loop0'), 8)} unit(s) over "
-          f"the first 8 frames, {pgm_diff(out_dir, os.path.join(tmp, 'loop0'))}"
-          f" over {T_LOOP}", flush=True)
+    diff = pgm_diff(out_dir, os.path.join(tmp, "loop0"))
+    check(diff == 0, f"run to run on the card: the CLI's maps equal the "
+          f"next loop run's (deterministic step): max |diff| {diff} unit(s) "
+          f"over {T_LOOP} frames")
 
-    # the loop against the rollout on the same windows, with deterministic
-    # cuDNN algorithms so that run-to-run noise (phase 13) stays out of it
-    torch.backends.cudnn.deterministic = True
-    try:
-        loop_mod.run_trajectory(model, CFG, traj, os.path.join(tmp, "det"),
-                                verbose=False)
-        depth, conf, _ = make_rollout(CFG)(model, windows, bv0_on(device),
-                                           [False])
-    finally:
-        torch.backends.cudnn.deterministic = False
+    # the loop against the rollout on the same windows
+    depth, conf, _ = make_rollout(CFG)(model, windows, bv0_on(device),
+                                       [False])
     errs = []
     for name, maps in (("d", depth), ("conf", conf)):
         for t in range(T_LOOP):
             want = loop_mod._q16(maps[t, 0]).cpu().numpy().view(np.uint16)
-            got = read_pgm(os.path.join(tmp, "det", f"{name}_{t:05d}.pgm"))
+            got = read_pgm(os.path.join(out_dir, f"{name}_{t:05d}.pgm"))
             errs.append((t, int(np.abs(got.astype(np.int64)
                                        - want.astype(np.int64)).max())))
-    first = max(e for t, e in errs if t < 8)
-    check(first <= 1, f"the first 8 frames' d_/conf_ pgm against _q16 of "
-          f"make_rollout on the same windows (cudnn.deterministic): max "
-          f"|diff| {first} unit(s)")
     check(max(e for _, e in errs) == 0, f"all {T_LOOP} frames' maps equal "
-          f"the rollout's (cudnn.deterministic; the loop normalizes as "
+          f"the rollout's on the same windows (the loop normalizes as "
           f"window_batch does): max |diff| {max(e for _, e in errs)} "
           f"unit(s)")
 
@@ -1232,7 +1291,7 @@ def phase_loop(model, device, tmp: str) -> dict:
           flush=True)
     for (where, message), n in sorted(sites.items()):
         print(f"    {n} x {where}: {message}", flush=True)
-    return {"root": root, "ckpt": ckpt}
+    return {"root": root, "ckpt": ckpt, "windows": windows}
 
 
 def phase_evaluate(loop_info: dict, tmp: str) -> None:
@@ -1244,6 +1303,293 @@ def phase_evaluate(loop_info: dict, tmp: str) -> None:
     check(bool(result) and result.get("n_valid", 0) > 0 and all(
         math.isfinite(v) for v in result.values()),
           f"finite metrics over n_valid = {result.get('n_valid')} pixels")
+
+
+def maps_equal_rollout(out_dir: str, depth, conf) -> int:
+    """Max |difference| in pgm units between the export in ``out_dir`` and
+    ``_q16`` of a rollout's depth and confidence on the same windows."""
+    worst = 0
+    for name, maps in (("d", depth), ("conf", conf)):
+        for t in range(T_LOOP):
+            want = loop_mod._q16(maps[t, 0]).cpu().numpy().view(np.uint16)
+            got = read_pgm(os.path.join(out_dir, f"{name}_{t:05d}.pgm"))
+            worst = max(worst, int(np.abs(got.astype(np.int64)
+                                          - want.astype(np.int64)).max()))
+    return worst
+
+
+def cli_flag_run(model, loop_info: dict, tmp: str, name: str, flags: list,
+                 **rollout_kw) -> None:
+    """``cli.test_kvnet`` with ``flags`` on phase 14's scene: its launches,
+    the export contract, and its maps against ``make_rollout(**rollout_kw)``
+    on the same windows."""
+    for mod in KERNELS.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    _, out = quiet(cli_test_kvnet.main, loop_args(
+        loop_info["root"], loop_info["ckpt"], os.path.join(tmp, name))
+        + flags)
+    cli_s = time.perf_counter() - t0
+    launches = {n: mod.launches for n, mod in KERNELS.items()}
+    print("  " + "\n  ".join(ln for ln in out.splitlines()
+                              if not ln.startswith("Finished frame")),
+          flush=True)
+    check(launches == {"sweep_fused": T_LOOP, "resample": T_LOOP,
+                       "conv3d": 0},
+          f"cli.test_kvnet {' '.join(flags)}: launches {launches} "
+          f"(expected {T_LOOP} sweeps and {T_LOOP} resamples), whole run "
+          f"{cli_s:.2f} s")
+    out_dir = os.path.join(tmp, name, "loop_0")
+    check_contract(out_dir)
+    windows = loop_info["windows"]
+    depth, conf, _ = make_rollout(CFG, **rollout_kw)(
+        model, windows, bv0_on(windows["ref"].device), [False])
+    diff = maps_equal_rollout(out_dir, depth, conf)
+    check(diff == 0, f"cli.test_kvnet {' '.join(flags)}: all {T_LOOP} "
+          f"frames' maps equal make_rollout({rollout_kw}) on the same "
+          f"windows: max |diff| {diff} unit(s)")
+
+
+def phase_cached(model, device, loop_info: dict, tmp: str) -> None:
+    print(f"phase 16: cached features, T={T} sliding windows of phase 14's "
+          f"scene at {IMG_HW[1]}x{IMG_HW[0]}", flush=True)
+    frames = {k: v[:T] for k, v in loop_info["windows"].items()}
+    fe = model.feature_extractor["feature_extraction"]
+    calls, at_step = [], []
+    hook = fe.register_forward_hook(lambda *args: calls.append(1))
+    make = rollout_mod.make_infer_step
+
+    def counting(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def counted(*a, **k):
+            at_step.append(len(calls))
+            return step(*a, **k)
+        return counted
+
+    rollout_mod.make_infer_step = counting
+    try:
+        _, cdepth, cconf = check_rollout(
+            model, frames, {"sweep_fused": T, "resample": T, "conv3d": 0},
+            cache_features=True)
+    finally:
+        rollout_mod.make_infer_step = make
+        hook.remove()
+    r = CFG.t_win_r
+    per_step = [b - a for a, b in zip(at_step, at_step[1:])]
+    check(at_step[:1] == [2 * r + 1] and per_step == [1] * (T - 1),
+          f"extractor calls by the start of each step: {at_step} (window "
+          f"0's {2 * r} frames and one new frame a step, {2 * r + 1} then "
+          f"1 per step)")
+    pdepth, pconf, _ = make_rollout(CFG, kernels=False, cache_features=True)(
+        model, frames, bv0_on(device), [False])
+    torch.cuda.synchronize()
+    for name, got, want in (("depth", cdepth, pdepth),
+                            ("confidence", cconf, pconf)):
+        e = max_err(got, want)
+        check(e <= ROLLOUT_TOL[name], f"cached kernel path vs cached plain "
+              f"path, {name}: max|err| {e:.3e} over {T} frames")
+    fe1 = make_frame_features()
+    step = make_infer_step(CFG, with_features=True)
+    bv, valid, same = bv0_on(device), [False], True
+    for t in range(T):
+        sb = {k: v[t] for k, v in frames.items()}
+        window = [fe1(model, f) for f in (*sb["srcs"][0], sb["ref"][0])]
+        feats = tuple(torch.stack([f[j] for f in window])[None]
+                      for j in (0, 1))
+        out = step(model, sb, bv, valid, feats)
+        same = (same and torch.equal(out.depth, cdepth[t])
+                and torch.equal(out.confidence, cconf[t]))
+        bv, valid = out.bv_predict, [True]
+    check(same, "the cached rollout equals a stepwise oracle that "
+          "featurizes every window frame fresh (make_frame_features, "
+          "with_features), bit for bit")
+    edepth, _, _ = make_rollout(CFG)(model, frames, bv0_on(device), [False])
+    err = (cdepth - edepth).abs()
+    print(f"  cached vs exact (joint-window BN) path, depth: mean "
+          f"{float(err.mean()):.3e} m, max {float(err.max()):.3e} m over "
+          f"{T} frames (random weights)", flush=True)
+    cli_flag_run(model, loop_info, tmp, "cli_cached", ["--cache_features"],
+                 cache_features=True)
+
+
+def phase_coarse(model, device, frames, depth, loop_info: dict,
+                 tmp: str) -> int:
+    print(f"phase 17: the coarse-D K-Net (knet_coarse_d = 2), T={T} at "
+          f"{IMG_HW[1]}x{IMG_HW[0]}", flush=True)
+    runs, conv_d = {}, []
+    conv = kpair.conv3d
+
+    def recording(x, *args, **kwargs):
+        conv_d.append(x.shape[0])
+        return conv(x, *args, **kwargs)
+
+    kpair.conv3d = recording
+    try:
+        for name, fast in (("exact", False), ("fast_knet", True)):
+            launches, cdepth, _ = check_rollout(
+                model, frames, {"sweep_fused": T, "resample": T,
+                                "conv3d": 10 * (T - 1) if fast else 0},
+                coarse_knet=2, fast_knet=fast)
+            runs[name] = launches, cdepth
+    finally:
+        kpair.conv3d = conv
+    # 10 (T - 1) launches in the rollout, 10 in check_rollout's extra step
+    check(set(conv_d) == {CFG.ndepth // 2} and len(conv_d) == 10 * T,
+          f"the conv kernel ran at D = {sorted(set(conv_d))} "
+          f"({len(conv_d)} launches; expected D = {CFG.ndepth // 2})")
+    for name, fast in (("exact", False), ("fast_knet", True)):
+        cdepth = runs[name][1]
+        check(torch.equal(cdepth[0], depth[0]),
+              f"coarse-D {name}, frame 0 (no K-Net) equals phase 5's exact "
+              f"path bit for bit")
+        pdepth, _, _ = make_rollout(CFG, kernels=False, coarse_knet=2,
+                                    fast_knet=fast)(
+            model, frames, bv0_on(device), [False])
+        torch.cuda.synchronize()
+        err = (cdepth - pdepth).abs()
+        ok = (float(err.mean()) < BF16_ROLLOUT_MEAN if fast
+              else float(err.max()) <= ROLLOUT_TOL["depth"])
+        check(ok, f"coarse-D {name}: kernel path vs plain path, depth max "
+              f"{float(err.max()):.3e} m, mean {float(err.mean()):.3e} m "
+              f"(bound: {'mean' if fast else 'max'} 1e-2)")
+        dev = (cdepth - depth).abs()
+        print(f"  coarse-D {name} vs phase 5's exact path, depth: mean "
+              f"{float(dev.mean()):.3e} m, max {float(dev.max()):.3e} m",
+              flush=True)
+    N = CFG.kv_feature_dim
+    x, w = conv_inputs(device, KNET_LAYER_D32, N)
+    pw = kconv.pack_weights(w)
+    xl = x.permute(3, 0, 1, 2)[None].contiguous(
+        memory_format=torch.channels_last_3d)
+    wl = w.to(torch.bfloat16).permute(4, 3, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d)
+    time_kernel(
+        f"conv3d per coarse-D K-Net layer {KNET_LAYER_D32}, pre-packed",
+        lambda: kconv.conv3d_kernel(x, pw, torch.bfloat16, True),
+        lambda: kconv.conv3d_plain(x, w, torch.bfloat16, True),
+        conv_bound(KNET_LAYER_D32, N, 2, True),
+        lambda: torch.nn.functional.conv3d(xl, wl, padding=1))
+    cli_flag_run(model, loop_info, tmp, "cli_coarse",
+                 ["--knet_coarse_d", "2"], coarse_knet=2)
+    return runs["fast_knet"][0]["conv3d"]
+
+
+def phase_bf16(model, device, frames, depth, loop_info: dict) -> None:
+    print(f"phase 18: bf16 convs (dtype='bfloat16'), T={T} at "
+          f"{IMG_HW[1]}x{IMG_HW[0]}", flush=True)
+    model16 = KVNet(BF16, device=device, seed=SEED, single_refine=True)
+    model16.load_state_dict(model.state_dict())
+    _, bdepth, _ = check_rollout(
+        model16, frames, {"sweep_fused": T, "resample": T, "conv3d": 0},
+        cfg=BF16)
+    pdepth, _, _ = make_rollout(BF16, kernels=False)(
+        model16, frames, bv0_on(device), [False])
+    torch.cuda.synchronize()
+    err = (bdepth - pdepth).abs()
+    check(float(err.mean()) < BF16_ROLLOUT_MEAN,
+          f"bf16 kernel path vs plain path, depth: mean "
+          f"{float(err.mean()):.3e} m (bound 1e-2), max "
+          f"{float(err.max()):.3e} m")
+    err = (bdepth - depth).abs()
+    check(float(err.mean()) < FAST_DEPTH_MEAN,
+          f"bf16 vs phase 5's fp32 exact path, depth: mean "
+          f"{float(err.mean()):.3e} m (bound {FAST_DEPTH_MEAN}), max "
+          f"{float(err.max()):.3e} m")
+    time_paths(model, model16, loop_info)
+
+
+def time_paths(model, model16, loop_info: dict) -> None:
+    """ms per frame of each path on the first T windows of phase 14's
+    scene, in turns (each path twice, the order reversed the second
+    time): the frame period the card sees (events after each step, frames
+    2..T-1, ``StepProbe``)."""
+    frames = {k: v[:T] for k, v in loop_info["windows"].items()}
+    cast = layers_mod._cast
+
+    def cast_every_call(module, name, dtype):
+        return getattr(module, name).to(dtype)
+
+    paths = {
+        "exact": (model, CFG, {}),
+        "cached features": (model, CFG, {"cache_features": True}),
+        "coarse-D": (model, CFG, {"coarse_knet": 2}),
+        "fast_knet": (model, CFG, {"fast_knet": True}),
+        "coarse-D + fast_knet": (model, CFG, {"coarse_knet": 2,
+                                              "fast_knet": True}),
+        "bf16": (model16, BF16, {}),
+        "bf16, weights cast every call": (model16, BF16, {}),
+        "bf16 + cached features + coarse-D fast_knet": (
+            model16, BF16, {"cache_features": True, "coarse_knet": 2,
+                            "fast_knet": True}),
+    }
+    times = {name: [] for name in paths}
+    for name in [*paths, *reversed(paths)]:
+        m, cfg, kw = paths[name]
+        if name.endswith("every call"):
+            layers_mod._cast = cast_every_call
+        try:
+            with StepProbe(rollout_mod) as probe:
+                make_rollout(cfg, **kw)(m, frames,
+                                        bv0_on(frames["ref"].device), [False])
+            times[name] += probe.frame_ms()[1:]
+        finally:
+            layers_mod._cast = cast
+    exact = statistics.median(times["exact"])
+    print(f"  {CARD[0]}: ms per frame (median of {len(times['exact'])} "
+          f"frames, 2 turns each, in turns):", flush=True)
+    for name, t in times.items():
+        med = statistics.median(t)
+        print(f"    {name}: {med:.3f} ({100 * (med / exact - 1):+.1f}% on "
+              f"exact); per frame {' '.join(f'{x:.1f}' for x in t)}",
+              flush=True)
+    time_features(model, model16, frames)
+
+
+def time_features(model, model16, frames) -> None:
+    """The feature extractor alone, ms per call (CUDA events around 5
+    calls, ``call_ms``): the window's 5 frames in one batch (the exact
+    path's call) and one frame (the cached path's call a step), fp32 and
+    bf16, in the step's numerics; and the 5-frame fp32 batch with cuDNN's
+    default algorithm choice. Each twice, the order reversed the second
+    time."""
+    x5 = torch.cat([frames["srcs"][0, 0], frames["ref"][0, :1]]).permute(
+        0, 3, 1, 2).contiguous()
+    cases = {
+        "fp32, 5 frames": (model, x5, step_mod.step_numerics),
+        "fp32, 1 frame": (model, x5[-1:], step_mod.step_numerics),
+        "bf16, 5 frames": (model16, x5, step_mod.step_numerics),
+        "bf16, 1 frame": (model16, x5[-1:], step_mod.step_numerics),
+        "fp32, 5 frames, cuDNN's default choice": (model, x5,
+                                                   tf32_numerics_only),
+    }
+    ms = {name: [] for name in cases}
+    launches = {}
+    for name in [*cases, *reversed(cases)]:
+        m, x, numerics = cases[name]
+        fe = m.feature_extractor["feature_extraction"]
+        with torch.no_grad(), numerics(False):
+            ms[name].append(call_ms(lambda: fe(x), reps=5))
+            launches[name] = kernel_launches(lambda: fe(x))
+    print(f"  {CARD[0]}: the feature extractor alone at "
+          f"{IMG_HW[1]}x{IMG_HW[0]}, ms per call (kernel launches per "
+          f"call): " + "; ".join(
+              f"{name} {statistics.mean(v):.3f} ({v[0]:.3f} / {v[1]:.3f}; "
+              f"{launches[name]})" for name, v in ms.items()), flush=True)
+
+
+def kernel_launches(fn) -> int:
+    """The kernel launches one call of ``fn`` issues: its CUDA runtime
+    calls named ``cudaLaunchKernel*`` under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.key.startswith("cudaLaunchKernel"))
 
 
 def main() -> int:
@@ -1265,7 +1611,12 @@ def main() -> int:
     phase_syncs(model, device)
     phase_tf32(model, device)
     with tempfile.TemporaryDirectory() as tmp:
-        phase_evaluate(phase_loop(model, device, tmp), tmp)
+        loop_info = phase_loop(model, device, tmp)
+        phase_evaluate(loop_info, tmp)
+        phase_cached(model, device, loop_info, tmp)
+        launches["conv3d"] += phase_coarse(model, device, frames, depth,
+                                           loop_info, tmp)
+        phase_bf16(model, device, frames, depth, loop_info)
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed:", *failures,
               sep="\n  ", file=sys.stderr)

@@ -4,13 +4,20 @@ One call = one temporal-window forward per lane + the Bayesian prediction
 resample for the next frame. Lanes run one at a time, so BatchNorm
 statistics are never pooled across trajectories (JAX vmaps one lane); the
 prediction runs for all lanes at once, one kernel launch on the kernel path.
+
+The conv dtype is the model's: ``cfg.dtype`` of the config it was built
+from. JAX's ``make_infer_step`` swaps in ``cfg.infer_dtype`` only when its
+backend is a TPU (``neuralrgbd_tpu/infer/step.py:138-141``) and keeps
+``cfg.dtype`` on every other backend; the card is no TPU, so the port never
+reads ``infer_dtype``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -47,20 +54,49 @@ def predict_next(dpv: torch.Tensor, pose_next: torch.Tensor, K: torch.Tensor,
 
 
 @contextlib.contextmanager
-def tf32_mode(enabled: bool):
-    """Set cuDNN's and cuBLAS's TF32 switches
-    (``torch.backends.cudnn.allow_tf32``, ``torch.backends.cuda.matmul.
-    allow_tf32``) to ``enabled`` for the body, then give both back the
-    caller's values, also when the body raises. PyTorch's own default
-    leaves cuDNN's on, which runs every fp32 conv in TF32 (a 10-bit
-    mantissa) on the card: not the fp32 reference."""
+def step_numerics(tf32: bool):
+    """The step's numerics, set for the body and given back to the caller
+    after it, also when it raises:
+
+    - cuDNN's and cuBLAS's TF32 switches (``torch.backends.cudnn.
+      allow_tf32``, ``torch.backends.cuda.matmul.allow_tf32``) at ``tf32``.
+      PyTorch's own default leaves cuDNN's on, which runs every fp32 conv
+      in TF32 (a 10-bit mantissa) on the card: not the fp32 reference;
+    - deterministic cuDNN algorithms (``torch.backends.cudnn.
+      deterministic = True``). cuDNN's default choice differs from run to
+      run on the card, so two runs of the same frames would differ (by up
+      to 8e-4 m of depth in 4 frames); JAX's programs are deterministic.
+    """
     cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-    saved = cudnn.allow_tf32, matmul.allow_tf32
-    cudnn.allow_tf32 = matmul.allow_tf32 = enabled
+    saved = cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic
+    cudnn.allow_tf32 = matmul.allow_tf32 = tf32
+    cudnn.deterministic = True
     try:
         yield
     finally:
-        cudnn.allow_tf32, matmul.allow_tf32 = saved
+        cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic = saved
+
+
+def make_frame_features(tf32: bool = False):
+    """Returns ``fe1(model, frame (H, W, 3)) -> (layer1 (32, H/2, W/2),
+    feat (F, h, w))``: the feature extractor on one frame alone, so with
+    B=1 BatchNorm statistics, in the step's numerics (``step_numerics``).
+
+    A frame's features are then independent of its window: the cached
+    paths featurize each frame once and reuse it in every window it
+    enters. A deviation from the reference's joint window statistics
+    (basic.py:245-252), unless the model was trained with
+    ``fe_per_frame_bn``. Counterpart of JAX's ``make_frame_features``,
+    in the port's planar layout.
+    """
+    @torch.no_grad()
+    def fe1(model: KVNet, frame: torch.Tensor) -> tuple:
+        with step_numerics(tf32):
+            layer1, feat = model.feature_extractor["feature_extraction"](
+                frame.permute(2, 0, 1)[None].contiguous())
+        return layer1[0], feat[0]
+
+    return fe1
 
 
 class InferStepOutput(NamedTuple):
@@ -72,7 +108,9 @@ class InferStepOutput(NamedTuple):
 
 
 def make_infer_step(cfg: ModelConfig, kernels: bool = True,
-                    fast_knet: bool = False, tf32: bool = False):
+                    fast_knet: bool = False, tf32: bool = False,
+                    coarse_knet: Optional[int] = None,
+                    with_features: bool = False):
     """Returns ``infer_step(model, batch, bv_predict, bv_valid)``.
 
     ``model`` is a ``KVNet`` built from ``cfg`` with ``single_refine=True``.
@@ -84,29 +122,43 @@ def make_infer_step(cfg: ModelConfig, kernels: bool = True,
     ``fast_knet``: the K-Net on ``knet_fast_apply`` (see ``KVNet.forward``),
     off by default as in JAX. ``tf32``: let cuDNN and cuBLAS run fp32 convs
     and matmuls in TF32; off, the step is fp32 whatever the caller's global
-    flags say (``tf32_mode`` sets them for the step and restores them).
+    flags say. Either way cuDNN's algorithms are deterministic for the
+    step (``step_numerics`` sets both for the step and restores them).
+    ``coarse_knet``: the K-Net at D/coarse_knet for this step, in place of
+    ``cfg.knet_coarse_d`` (None keeps it).
+
+    ``with_features=True`` returns instead
+    ``infer_step(model, batch, bv_predict, bv_valid, feats)``, where
+    ``feats = (layer1 (N, V+1, 32, H/2, W/2), feat (N, V+1, F, h, w))`` in
+    [srcs..., ref] order replaces the feature extractor (the cached-feature
+    paths; ``make_frame_features``).
 
     batch dict of tensors (leading N = lanes):
       ref (N, H, W, 3), srcs (N, V, H, W, 3), poses (N, V, 4, 4) ref->src,
       K (N, 3, 3) at DPV resolution, pose_next (N, 4, 4) ref->next-ref.
     bv_predict (N, D, h, w); bv_valid: N host bools.
     """
+    if coarse_knet is not None:
+        cfg = dataclasses.replace(cfg, knet_coarse_d=int(coarse_knet))
     check_supported(cfg)
     d_candis: dict = {}   # per device: copied there once (a copy syncs)
 
     @torch.no_grad()
-    def infer_step(model: KVNet, batch, bv_predict, bv_valid):
+    def run(model: KVNet, batch, bv_predict, bv_valid, feats):
         dev = bv_predict.device
         d_candi = d_candis.get(dev)
         if d_candi is None:
             d_candi = d_candis[dev] = torch.as_tensor(cfg.d_candi, device=dev)
         lanes = []
-        with tf32_mode(tf32):
+        with step_numerics(tf32):
             for n, valid in enumerate(bv_valid):
                 out = model(batch["ref"][n], batch["srcs"][n],
                             batch["poses"][n], Camera(K=batch["K"][n]),
                             d_candi, bv_predict[n], bool(valid),
-                            kernels=kernels, fast_knet=fast_knet)
+                            precomputed=None if feats is None
+                            else (feats[0][n], feats[1][n]),
+                            kernels=kernels, fast_knet=fast_knet,
+                            coarse_d=cfg.knet_coarse_d)
                 lanes.append((out.dpv, out.dpv_refined,
                               depth_regression(out.dpv_refined, d_candi),
                               confidence_map(out.dpv_refined)))
@@ -115,5 +167,13 @@ def make_infer_step(cfg: ModelConfig, kernels: bool = True,
             bv_next = predict_next(dpv, batch["pose_next"], batch["K"],
                                    d_candi, kernels)
         return InferStepOutput(dpv, dpv_refined, bv_next, depth, conf)
+
+    if with_features:
+        def infer_step_f(model, batch, bv_predict, bv_valid, feats):
+            return run(model, batch, bv_predict, bv_valid, feats)
+        return infer_step_f
+
+    def infer_step(model, batch, bv_predict, bv_valid):
+        return run(model, batch, bv_predict, bv_valid, None)
 
     return infer_step

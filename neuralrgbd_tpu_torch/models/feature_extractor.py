@@ -6,30 +6,38 @@ its state_dict keys are the reference's. As there: layer3 has dilation 1,
 layer4 dilation 2, and the residual blocks have no ReLU after the add.
 
 Input (B, 3, H, W). Returns (layer1 (B, 32, H/2, W/2),
-feat (B, feature_dim, H/4, W/4)).
+feat (B, feature_dim, H/4, W/4)). ``compute_dtype``: the convs' dtype
+(``models/layers.py``), None for fp32.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from neuralrgbd_tpu_torch.models.layers import convbn, upsample_bilinear_ac
+from neuralrgbd_tpu_torch.models.layers import (Conv2d, convbn,
+                                                upsample_bilinear_ac)
 
 POOLS = (64, 32, 16, 8)   # branch1..branch4
 
 
 class BasicBlock(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int, dilation: int,
-                 downsample: bool, device=None):
+                 downsample: bool, device=None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.conv1 = nn.Sequential(
-            convbn(inplanes, planes, 3, stride, 1, dilation, device),
+            convbn(inplanes, planes, 3, stride, 1, dilation, device,
+                   compute_dtype),
             nn.ReLU(inplace=True))
-        self.conv2 = convbn(planes, planes, 3, 1, 1, dilation, device)
+        self.conv2 = convbn(planes, planes, 3, 1, 1, dilation, device,
+                            compute_dtype)
         self.downsample = nn.Sequential(
-            nn.Conv2d(inplanes, planes, 1, stride, bias=False, device=device),
+            Conv2d(inplanes, planes, 1, stride, bias=False, device=device,
+                   compute_dtype=compute_dtype),
             nn.BatchNorm2d(planes, track_running_stats=False, device=device),
         ) if downsample else None
 
@@ -40,35 +48,38 @@ class BasicBlock(nn.Module):
         return out + x
 
 
-def _layer(inplanes, planes, blocks, stride, dilation, device):
+def _layer(inplanes, planes, blocks, stride, dilation, device, dt):
     down = stride != 1 or inplanes != planes
     return nn.Sequential(
-        BasicBlock(inplanes, planes, stride, dilation, down, device),
-        *(BasicBlock(planes, planes, 1, dilation, False, device)
+        BasicBlock(inplanes, planes, stride, dilation, down, device, dt),
+        *(BasicBlock(planes, planes, 1, dilation, False, device, dt)
           for _ in range(1, blocks)))
 
 
 class FeatureExtractor(nn.Module):
-    def __init__(self, feature_dim: int = 64, device=None):
+    def __init__(self, feature_dim: int = 64, device=None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        dt = compute_dtype
         self.firstconv = nn.Sequential(
-            convbn(3, 32, 3, 2, 1, 1, device), nn.ReLU(inplace=True),
-            convbn(32, 32, 3, 1, 1, 1, device), nn.ReLU(inplace=True),
-            convbn(32, 32, 3, 1, 1, 1, device), nn.ReLU(inplace=True))
-        self.layer1 = _layer(32, 32, 3, 1, 1, device)
-        self.layer2 = _layer(32, 64, 16, 2, 1, device)
-        self.layer3 = _layer(64, 128, 3, 1, 1, device)
-        self.layer4 = _layer(128, 128, 3, 1, 2, device)
+            convbn(3, 32, 3, 2, 1, 1, device, dt), nn.ReLU(inplace=True),
+            convbn(32, 32, 3, 1, 1, 1, device, dt), nn.ReLU(inplace=True),
+            convbn(32, 32, 3, 1, 1, 1, device, dt), nn.ReLU(inplace=True))
+        self.layer1 = _layer(32, 32, 3, 1, 1, device, dt)
+        self.layer2 = _layer(32, 64, 16, 2, 1, device, dt)
+        self.layer3 = _layer(64, 128, 3, 1, 1, device, dt)
+        self.layer4 = _layer(128, 128, 3, 1, 2, device, dt)
         for i, pool in enumerate(POOLS):
             # index 0 is the reference's fixed AvgPool2d; forward clamps the
             # window to the feature map (see below) and runs [1:] itself
             self.add_module(f"branch{i + 1}", nn.Sequential(
-                nn.AvgPool2d(pool, pool), convbn(128, 32, 1, 1, 0, 1, device),
+                nn.AvgPool2d(pool, pool),
+                convbn(128, 32, 1, 1, 0, 1, device, dt),
                 nn.ReLU(inplace=True)))
         self.lastconv = nn.Sequential(
-            convbn(320, 128, 3, 1, 1, 1, device), nn.ReLU(inplace=True),
-            nn.Conv2d(128, feature_dim, 1, 1, padding=0, bias=False,
-                      device=device))
+            convbn(320, 128, 3, 1, 1, 1, device, dt), nn.ReLU(inplace=True),
+            Conv2d(128, feature_dim, 1, 1, padding=0, bias=False,
+                   device=device, compute_dtype=dt))
 
     def forward(self, x: torch.Tensor):
         y = self.firstconv(x)

@@ -2,34 +2,52 @@
 ``neuralrgbd_tpu/models/knet.py``; the reference's ``KV_NET_BASIC``).
 
 A residual stack of five convbn_3d pairs plus a one-channel classify head.
-Input (N, C_in, D, H, W); returns the gain volume (N, D, H, W).
+Input (N, C_in, D, H, W); returns the gain volume (N, D', H, W).
+``up_sample_ratio`` is the reference's optional trilinear D-upsample of the
+gain (``basic.py:128-139``): H and W keep their size, so with
+align_corners=True it is a 1-D linear interpolation along D, one
+(ratio*D, D) matrix applied in fp32, and D' = ratio*D. ``compute_dtype``:
+the convs' dtype (``models/layers.py``), None for fp32.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
-from neuralrgbd_tpu_torch.models.layers import convbn_3d
+from neuralrgbd_tpu_torch.models.layers import (Conv3d, convbn_3d,
+                                                linear_interp_matrix_ac)
 
 
 class KNet(nn.Module):
-    def __init__(self, in_channels: int, feature_dim: int = 64, device=None):
+    def __init__(self, in_channels: int, feature_dim: int = 64, device=None,
+                 up_sample_ratio: Optional[int] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        f = feature_dim
+        f, dt = feature_dim, compute_dtype
+        self.up_sample_ratio = up_sample_ratio
         self.dres0 = nn.Sequential(
-            convbn_3d(in_channels, f, 3, 1, 1, device), nn.ReLU(inplace=True),
-            convbn_3d(f, f, 3, 1, 1, device), nn.ReLU(inplace=True))
+            convbn_3d(in_channels, f, 3, 1, 1, device, dt),
+            nn.ReLU(inplace=True),
+            convbn_3d(f, f, 3, 1, 1, device, dt), nn.ReLU(inplace=True))
         for i in range(1, 5):
             self.add_module(f"dres{i}", nn.Sequential(
-                convbn_3d(f, f, 3, 1, 1, device), nn.ReLU(inplace=True),
-                convbn_3d(f, f, 3, 1, 1, device)))
+                convbn_3d(f, f, 3, 1, 1, device, dt), nn.ReLU(inplace=True),
+                convbn_3d(f, f, 3, 1, 1, device, dt)))
         self.classify = nn.Sequential(
-            convbn_3d(f, f, 3, 1, 1, device), nn.ReLU(inplace=True),
-            nn.Conv3d(f, 1, 3, 1, padding=1, bias=False, device=device))
+            convbn_3d(f, f, 3, 1, 1, device, dt), nn.ReLU(inplace=True),
+            Conv3d(f, 1, 3, 1, padding=1, bias=False, device=device,
+                   compute_dtype=dt))
 
     def forward(self, vol: torch.Tensor) -> torch.Tensor:
         cost = self.dres0(vol)
         for i in range(1, 5):
             cost = getattr(self, f"dres{i}")(cost) + cost
-        return self.classify(cost)[:, 0]
+        out = self.classify(cost)[:, 0]
+        if self.up_sample_ratio is not None:
+            D = out.shape[1]
+            m = linear_interp_matrix_ac(D, self.up_sample_ratio * D)
+            out = torch.einsum("od,ndhw->nohw", m.to(out.device), out.float())
+        return out

@@ -10,6 +10,13 @@ Unlike JAX, where a static graph runs the K-Net on the first frame too and
 ``jnp.where`` discards it, eager PyTorch skips the K-Net when the
 prediction is invalid; the outputs are the same.
 
+The three inference deviations of the JAX KVNet run here, each as JAX's:
+``cfg.knet_coarse_d`` (the K-Net at D/cd), ``cfg.fe_per_frame_bn`` (B=1
+BatchNorm statistics in the feature extractor) with ``precomputed``
+features (the cached-feature rollout), and ``cfg.dtype`` (the convs'
+dtype; see ``models/layers.py``). None of them adds a parameter: the
+state_dict and its bridge are the same for every setting.
+
 The model is built on the CUDA card unless the caller names another
 device (the CPU tests pass ``device="cpu"``).
 """
@@ -25,7 +32,8 @@ from torch import nn
 from neuralrgbd_tpu_torch.config import ModelConfig
 from neuralrgbd_tpu_torch.models.feature_extractor import FeatureExtractor
 from neuralrgbd_tpu_torch.models.knet import KNet
-from neuralrgbd_tpu_torch.models.layers import reference_init_
+from neuralrgbd_tpu_torch.models.layers import (linear_interp_matrix_ac,
+                                                reference_init_)
 from neuralrgbd_tpu_torch.models.rnet import RNet
 from neuralrgbd_tpu_torch.ops.camera import Camera
 from neuralrgbd_tpu_torch.ops.cuda.conv3d_pair import knet_fast_apply
@@ -44,20 +52,25 @@ class KVNetOutput(NamedTuple):
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the options of the JAX KVNet this port does not run yet."""
+    """Raise ``NotImplementedError`` for the options of the JAX KVNet this
+    port does not run yet, and ``ValueError`` for a ``knet_coarse_d`` that
+    does not divide ``ndepth`` (JAX raises it in the forward)."""
     deferred = {
         "refine_net='DGF'": cfg.refine_net == "DGF",
         "refine_costv": cfg.refine_costv,
         "dnet_bayes": cfg.dnet_bayes,
         "refine_dup": cfg.refine_dup,
-        "knet_coarse_d > 1": cfg.knet_coarse_d > 1,
-        "fe_per_frame_bn": cfg.fe_per_frame_bn,
-        "dtype other than float32": cfg.dtype != "float32",
     }
     named = [name for name, on in deferred.items() if on]
     if named:
         raise NotImplementedError(
             "not ported to the PyTorch KVNet yet: " + ", ".join(named))
+    check_coarse_d(cfg.knet_coarse_d, cfg.ndepth)
+
+
+def check_coarse_d(cd: int, D: int) -> None:
+    if cd > 1 and D % cd:
+        raise ValueError(f"knet_coarse_d={cd} must divide ndepth={D}")
 
 
 class KVNet(nn.Module):
@@ -77,12 +90,38 @@ class KVNet(nn.Module):
                 "sees none; pass device='cpu' to build on the CPU")
         self.cfg = cfg
         self.single_refine = single_refine
+        dt = getattr(torch, cfg.dtype)           # the convs' dtype
+        dt = None if dt == torch.float32 else dt  # None: plain fp32 convs
         self.feature_extractor = nn.ModuleDict({
-            "feature_extraction": FeatureExtractor(cfg.feature_dim, device)})
-        self.kv_net = KNet(cfg.kvnet_in_channels, cfg.kv_feature_dim, device)
+            "feature_extraction": FeatureExtractor(cfg.feature_dim, device,
+                                                   dt)})
+        self.kv_net = KNet(cfg.kvnet_in_channels, cfg.kv_feature_dim, device,
+                           compute_dtype=dt)
         self.r_net = RNet(D=cfg.ndepth, C0=cfg.feature_dim, C1=32,
-                          C2=cfg.refine_channel, device=device)
+                          C2=cfg.refine_channel, device=device,
+                          compute_dtype=dt)
+        self._interp: dict = {}
         reference_init_(self, seed)
+
+    def features(self, frames: torch.Tensor) -> tuple:
+        """(B, 3, H, W) -> (layer1, feat) of the feature extractor: one
+        batch (joint BatchNorm statistics), or with ``fe_per_frame_bn`` one
+        call per frame (B=1 statistics, the weights shared)."""
+        fe = self.feature_extractor["feature_extraction"]
+        if not self.cfg.fe_per_frame_bn:
+            return fe(frames)
+        layer1, feat = zip(*(fe(frames[i:i + 1])
+                             for i in range(frames.shape[0])))
+        return torch.cat(layer1), torch.cat(feat)
+
+    def interp(self, n_in: int, n_out: int, device) -> torch.Tensor:
+        """``linear_interp_matrix_ac(n_in, n_out)`` on ``device``, copied
+        there once (a copy from the host waits for the card)."""
+        key = (n_in, n_out, torch.device(device))
+        if key not in self._interp:
+            self._interp[key] = linear_interp_matrix_ac(n_in, n_out).to(
+                device)
+        return self._interp[key]
 
     def forward(
         self,
@@ -96,26 +135,29 @@ class KVNet(nn.Module):
         precomputed: Optional[tuple] = None,
         kernels: bool = True,
         fast_knet: bool = False,
+        coarse_d: Optional[int] = None,
     ) -> KVNetOutput:
-        """``kernels`` routes the plane sweep (and, with ``fast_knet``, the
-        K-Net convs) through the CUDA kernel wrappers, which take their
-        plain twins for CPU tensors; False runs the plain versions on any
-        device. ``fast_knet`` (inference only, off by default as in JAX)
-        runs the K-Net as ``ops.cuda.conv3d_pair.knet_fast_apply``: its
-        ten 64->64 convs in bf16 with fp32 accumulation. As in JAX it
-        applies only when ``kv_feature_dim`` is 64; any other width takes
-        the plain K-Net."""
-        if precomputed is not None:
-            raise NotImplementedError(
-                "precomputed features (the cached-feature rollout) are not "
-                "ported to the PyTorch KVNet yet")
+        """``precomputed``: ``(layer1 (V+1, 32, H/2, W/2), feat (V+1, F, h,
+        w))`` in [srcs..., ref] order, the port's planar layout; it skips
+        the feature extractor (the cached-feature rollout). ``kernels``
+        routes the plane sweep (and, with ``fast_knet``, the K-Net convs)
+        through the CUDA kernel wrappers, which take their plain twins for
+        CPU tensors; False runs the plain versions on any device.
+        ``fast_knet`` (inference only, off by default as in JAX) runs the
+        K-Net as ``ops.cuda.conv3d_pair.knet_fast_apply``: its ten 64->64
+        convs in bf16 with fp32 accumulation. As in JAX it applies only
+        when ``kv_feature_dim`` is 64; any other width takes the plain
+        K-Net. ``coarse_d`` overrides ``cfg.knet_coarse_d`` (the step's
+        ``coarse_knet``)."""
         cfg = self.cfg
         V, H, W, _ = src_frames.shape
 
-        # ---- D-Net: features for all V+1 frames in one batch (joint BN) ----
+        # ---- D-Net: features of the V+1 frames ----
         frames = torch.cat([src_frames, ref_frame[None]]).permute(0, 3, 1, 2)
-        layer1, feat = self.feature_extractor["feature_extraction"](
-            frames.contiguous())                   # (V+1, 32, .), (V+1, F, h, w)
+        if precomputed is not None:
+            layer1, feat = precomputed
+        else:                                      # (V+1, 32, .), (V+1, F, h, w)
+            layer1, feat = self.features(frames.contiguous())
         h, w = feat.shape[-2:]
         ints = F.avg_pool2d(frames, W // w)        # (V+1, 3, h, w)
         sw = torch.cat([feat, ints], 1) if cfg.use_img_intensity else feat
@@ -149,11 +191,23 @@ class KVNet(nn.Module):
                 ints[-1][:, None].expand(3, D, h, w),
                 (bv_cur - bv_predict)[None],
             ])
+            # coarse-D K-Net: the volume down along D on the align_corners
+            # grid, the K-Net at D/cd, the gain back up in fp32
+            cd = max(1, int(cfg.knet_coarse_d if coarse_d is None
+                            else coarse_d))
+            if cd > 1:
+                check_coarse_d(cd, D)
+                vol = torch.einsum("od,cdhw->cohw",
+                                   self.interp(D, D // cd, vol.device), vol)
             if fast_knet and cfg.kv_feature_dim == 64:
                 gain = knet_fast_apply(self.kv_net,
                                        vol.permute(1, 2, 3, 0), kernels)
             else:
-                gain = self.kv_net(vol[None])[0]                 # (D, h, w)
+                gain = self.kv_net(vol[None])[0]            # (D/cd, h, w)
+            if cd > 1:
+                gain = torch.einsum("od,dhw->ohw",
+                                    self.interp(D // cd, D, gain.device),
+                                    gain.float())
             dpv = F.log_softmax(gain + bv_predict, dim=0)
         else:
             dpv = bv_cur

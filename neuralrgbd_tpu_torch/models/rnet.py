@@ -4,24 +4,31 @@
 
 Treats the D axis of exp(DPV) as channels and upsamples twice by 2x,
 concatenating image features at each scale and the RGB guide at full
-resolution, ending in a log-softmax over D.
+resolution, ending in a log-softmax over D. ``compute_dtype``: the convs'
+dtype (``models/layers.py``), None for fp32.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-
-def _conv_lrelu(c_in: int, c_out: int, device=None) -> nn.Sequential:
-    return nn.Sequential(nn.Conv2d(c_in, c_out, 3, 1, padding=1, bias=True,
-                                   device=device), nn.LeakyReLU())
+from neuralrgbd_tpu_torch.models.layers import Conv2d, ConvTranspose2d
 
 
-def _deconv_lrelu(c_in: int, c_out: int, device=None) -> nn.Sequential:
-    return nn.Sequential(nn.ConvTranspose2d(c_in, c_out, 4, 2, padding=1,
-                                            bias=True, device=device),
+def _conv_lrelu(c_in: int, c_out: int, device, dt) -> nn.Sequential:
+    return nn.Sequential(Conv2d(c_in, c_out, 3, 1, padding=1, bias=True,
+                                device=device, compute_dtype=dt),
+                         nn.LeakyReLU())
+
+
+def _deconv_lrelu(c_in: int, c_out: int, device, dt) -> nn.Sequential:
+    return nn.Sequential(ConvTranspose2d(c_in, c_out, 4, 2, padding=1,
+                                         bias=True, device=device,
+                                         compute_dtype=dt),
                          nn.LeakyReLU())
 
 
@@ -29,19 +36,19 @@ class RNet(nn.Module):
     """C0/C1/C2 = feature channels at 1/4, 1/2, 1/1 resolution."""
 
     def __init__(self, D: int = 64, C0: int = 64, C1: int = 32, C2: int = 3,
-                 device=None):
+                 device=None, compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        c0, c1, c2 = D + C0, D + C1, D + C2
-        self.conv0 = _conv_lrelu(c0, c0, device)
-        self.conv0_1 = _conv_lrelu(c0, c0, device)
-        self.trans_conv0 = _deconv_lrelu(c0, D, device)
-        self.conv1 = _conv_lrelu(c1, c1, device)
-        self.conv1_1 = _conv_lrelu(c1, c1, device)
-        self.trans_conv1 = _deconv_lrelu(c1, D, device)
-        self.conv2 = _conv_lrelu(c2, c2, device)
-        self.conv2_1 = _conv_lrelu(c2, D, device)
-        self.conv2_2 = nn.Conv2d(D, D, 3, 1, padding=1, bias=True,
-                                 device=device)
+        c0, c1, c2, dt = D + C0, D + C1, D + C2, compute_dtype
+        self.conv0 = _conv_lrelu(c0, c0, device, dt)
+        self.conv0_1 = _conv_lrelu(c0, c0, device, dt)
+        self.trans_conv0 = _deconv_lrelu(c0, D, device, dt)
+        self.conv1 = _conv_lrelu(c1, c1, device, dt)
+        self.conv1_1 = _conv_lrelu(c1, c1, device, dt)
+        self.trans_conv1 = _deconv_lrelu(c1, D, device, dt)
+        self.conv2 = _conv_lrelu(c2, c2, device, dt)
+        self.conv2_1 = _conv_lrelu(c2, D, device, dt)
+        self.conv2_2 = Conv2d(D, D, 3, 1, padding=1, bias=True,
+                              device=device, compute_dtype=dt)
 
     def forward(self, dpv_prob, feat_quarter, feat_half, img_full):
         """(N, D, h, w), (N, C0, h, w), (N, C1, 2h, 2w), (N, C2, 4h, 4w)

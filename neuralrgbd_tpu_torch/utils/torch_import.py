@@ -135,6 +135,9 @@ def state_dict_from_jax(variables, refine_net: str = "DPV"
     leaves) -> torch state_dict with the reference KVNET's keys.
 
     Raises if a flax parameter has no torch key, so nothing is dropped.
+    One state_dict serves every setting of the inference deviations
+    (``knet_coarse_d``, ``fe_per_frame_bn`` with cached features, ``dtype``):
+    none of them adds a parameter, in JAX or in the port.
     """
     params = variables.get("params", variables)
     flat = _flatten(params)

@@ -16,7 +16,9 @@ Standard: exports as in ``test_torch_loop.py`` (maps within 1
 quantization unit, images and scene_path_info equal); the evaluate JSON
 lines equal in keys and within rtol 1e-3. Also: the loader raises on a
 state_dict that leaves a parameter unloaded or has a wrong shape, and the
-options the port does not have raise ``NotImplementedError``.
+options the port does not have raise ``NotImplementedError``
+(``--cache_features`` and ``--knet_coarse_d`` run:
+``tests/test_torch_flags_e2e.py``).
 """
 
 import json
@@ -145,11 +147,9 @@ def test_loader_raises_on_a_wrong_shape(variables, state_dict):
 @pytest.mark.parametrize("extra", [
     ["--dataset", "kitti"],
     ["--refine_net", "DGF"],
-    ["--knet_coarse_d", "2"],
     ["--multi_device", "--traj_idx", "0", "1"],
     ["--model_path", "orbax_checkpoint_dir"],
-    ["--cache_features"],
-], ids=["kitti", "dgf", "coarse_d", "multi_device", "orbax", "cache"])
+], ids=["kitti", "dgf", "multi_device", "orbax"])
 def test_unported_options_raise(run, extra):
     argv = [a for a in run["common"] if not a.endswith(".tar")]
     argv.remove("--model_path")

@@ -11,8 +11,10 @@ Standard, as in ``tests/test_data_e2e.py:137-139``: the ``d_``/``conf_``
 pgm files within 1 quantization unit (a value near a multiple of 1e-3
 truncates either way), the ``img_`` pixels and ``scene_path_info.txt``
 equal. Also: the loop's chunk size changes no byte, ``_q16`` casts as
-JAX's does, an export worker's error reaches the caller, and the TF32
-guard of the step sets and restores the global flags.
+JAX's does, an export worker's error reaches the caller, and the step's
+numerics (TF32 off, deterministic cuDNN algorithms) are set for the step
+and the caller's global flags restored. The cached-feature loop:
+``tests/test_torch_flags_e2e.py``.
 """
 
 import os
@@ -37,7 +39,8 @@ from neuralrgbd_tpu_torch.config import ModelConfig
 from neuralrgbd_tpu_torch.data.scannet import make_trajectory
 from neuralrgbd_tpu_torch.data.synthetic import write_scannet_scene
 from neuralrgbd_tpu_torch.infer import loop
-from neuralrgbd_tpu_torch.infer.step import make_infer_step
+from neuralrgbd_tpu_torch.infer.step import (make_frame_features,
+                                             make_infer_step)
 from neuralrgbd_tpu_torch.models.kvnet import KVNet
 from neuralrgbd_tpu_torch.utils.torch_import import state_dict_from_jax
 
@@ -197,14 +200,6 @@ def test_export_worker_error_reaches_the_caller(scenes, weights, tmp_path,
                             verbose=False, chunk_t=2)
 
 
-def test_cached_features_raise(scenes, weights, tmp_path):
-    traj = make_trajectory(0, 5, scenes["clean"], img_size_wh=IMG_WH,
-                           d_candi=CFG.d_candi)
-    with pytest.raises(NotImplementedError, match="cache_features"):
-        loop.run_trajectory(weights[1], CFG, traj, str(tmp_path),
-                            cache_features=True)
-
-
 FLAGS = [(True, False), (True, True), (False, False)]
 
 
@@ -250,3 +245,46 @@ def test_tf32_guard(caller_flags, flags, tf32):
     out = step(lane_model, batch, bvp, [False])
     assert out.depth.shape == (1, 2, 2)
     assert seen[1] == (tf32, tf32) and _flags() == flags
+
+
+@pytest.fixture
+def caller_deterministic():
+    saved = torch.backends.cudnn.deterministic
+    yield
+    torch.backends.cudnn.deterministic = saved
+
+
+@pytest.mark.parametrize("caller", [False, True])
+def test_step_is_deterministic(caller_flags, caller_deterministic, caller):
+    """The step and the per-frame extractor run with deterministic cuDNN
+    algorithms and give the caller's value back after they return and
+    after they raise."""
+    torch.backends.cudnn.deterministic = caller
+    seen = []
+
+    def broken(*args, **kwargs):
+        seen.append(torch.backends.cudnn.deterministic)
+        raise RuntimeError("inside the step")
+
+    step = make_infer_step(CFG)
+    batch = {"ref": [None], "srcs": [None], "poses": [None],
+             "K": torch.eye(3)[None], "pose_next": torch.eye(4)[None]}
+    bvp = torch.zeros(1, CFG.ndepth, 2, 2)
+    with pytest.raises(RuntimeError, match="inside the step"):
+        step(broken, batch, bvp, [False])
+    assert seen == [True] and torch.backends.cudnn.deterministic is caller
+
+    def lane_model(*args, **kwargs):
+        seen.append(torch.backends.cudnn.deterministic)
+        dpv = torch.log_softmax(torch.zeros(CFG.ndepth, 2, 2), 0)
+        return type("Out", (), {"dpv": dpv, "dpv_refined": dpv})()
+
+    step(lane_model, batch, bvp, [False])
+    assert seen[1] is True and torch.backends.cudnn.deterministic is caller
+
+    class Model:
+        feature_extractor = {"feature_extraction": lambda x: (
+            seen.append(torch.backends.cudnn.deterministic) or (x, x))}
+
+    make_frame_features()(Model(), torch.zeros(4, 6, 3))
+    assert seen[2] is True and torch.backends.cudnn.deterministic is caller

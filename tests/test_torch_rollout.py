@@ -74,8 +74,8 @@ def weights():
     return variables, model
 
 
-def _port_rollout(model, frames, n_lanes=1, kernels=True):
-    return make_rollout(CFG, kernels=kernels)(
+def _port_rollout(model, frames, n_lanes=1, kernels=True, cfg=CFG):
+    return make_rollout(cfg, kernels=kernels)(
         model, {k: torch.from_numpy(v) for k, v in frames.items()},
         torch.from_numpy(_bvp0(n_lanes)), [False] * n_lanes)
 
@@ -135,8 +135,7 @@ def test_step_outputs_are_distributions(weights):
 
 @pytest.mark.parametrize("change", [
     {"refine_net": "DGF"}, {"refine_costv": True}, {"dnet_bayes": True},
-    {"refine_dup": True}, {"knet_coarse_d": 2}, {"fe_per_frame_bn": True},
-    {"dtype": "bfloat16"}])
+    {"refine_dup": True}])
 def test_deferred_options_raise(change):
     import dataclasses
 
@@ -145,3 +144,23 @@ def test_deferred_options_raise(change):
         KVNet(cfg, device="cpu")
     with pytest.raises(NotImplementedError):
         make_infer_step(cfg)
+
+
+@pytest.mark.parametrize("change", [
+    {"knet_coarse_d": 2}, {"fe_per_frame_bn": True}, {"dtype": "bfloat16"}])
+def test_ported_options_run(weights, change):
+    """The deviations of the JAX KVNet build and step on the bridged
+    weights (no parameter of their own), give distributions, and move the
+    result off the exact path (tests/test_torch_deviations.py holds each
+    against JAX)."""
+    import dataclasses
+
+    _, model = weights
+    cfg = dataclasses.replace(CFG, **change)
+    flagged = KVNet(cfg, device="cpu", single_refine=True)
+    flagged.load_state_dict(model.state_dict(), strict=True)
+    frames = _frames()
+    depth, conf, bv = _port_rollout(flagged, frames, cfg=cfg)
+    assert all(bool(torch.isfinite(x).all()) for x in (depth, conf, bv))
+    assert (bv <= 0).all() and ((conf > 0) & (conf <= 1 + 1e-6)).all()
+    assert not torch.equal(depth, _port_rollout(model, frames)[0])
