@@ -107,9 +107,27 @@ Phases, each printing its own lines:
    and the feature extractor alone (5 frames and 1, fp32 and bf16), ms
    and kernel launches per call.
 
+19. training at the operating point (``train.step.make_train_step``,
+   fp32, TF32 off, Adam at lr 1e-4): 8 steps overfitting one window (the
+   loss falls; the carry on the resample kernel once a step, no sweep
+   kernel: the forward trains on the plain ops), a 2-lane step with the
+   carry on the kernel against one with it on the plain ops (the loss
+   bit for bit, the carry within the resample tolerance), one step's
+   gradients on the card against the CPU at 96x64 D=8, two identical
+   4-step runs compared (without and with
+   ``torch.use_deterministic_algorithms``), ms per step, host ms and peak
+   memory for 1 and 2 lanes in fp32 and bf16, host syncs per step, and
+   ``cli.train_kvnet`` for 3 steps on phase 14's scene followed by
+   ``cli.test_kvnet --model_path`` on the checkpoint it wrote;
+20. KITTI at no-crop: a fabricated 30-frame drive at 1242x375 through
+   ``cli.test_kvnet --dataset kitti --crop_w 768`` at 768x256 (the sweep
+   at 64x192 and the resample at W=192 against their twins, launches,
+   the contract, ms per frame, the loop against the rollout), and 2
+   train steps on its labelled windows.
+
 Then one ``{"kernels": [...]}`` line (the conv kernel's launches: phase
-10's and phase 17's fast path) and, last, the ``{"ok": true, ...}``
-line. Any failed check exits non-zero before those two lines. A kernel's
+10's and phase 17's fast path; the sweep's and the resample's add
+phases 19-20) and, last, the ``{"ok": true, ...}`` line. Any failed check exits non-zero before those two lines. A kernel's
 ``ms`` in that line is its ``device_ms``. Every
 kernel's ``bound_ms`` is computed here from the shapes it was timed at:
 the larger of its bytes (each input read once, each output written once)
@@ -139,7 +157,9 @@ import torch
 
 from neuralrgbd_tpu_torch.cli import evaluate as cli_evaluate
 from neuralrgbd_tpu_torch.cli import test_kvnet as cli_test_kvnet
-from neuralrgbd_tpu_torch.config import ModelConfig
+from neuralrgbd_tpu_torch.cli import train_kvnet as cli_train_kvnet
+from neuralrgbd_tpu_torch.config import ModelConfig, TrainConfig
+from neuralrgbd_tpu_torch.data import kitti
 from neuralrgbd_tpu_torch.data.scannet import make_trajectory
 from neuralrgbd_tpu_torch.data.synthetic import (synthetic_batch,
                                                  write_plane_scene)
@@ -166,6 +186,10 @@ from neuralrgbd_tpu_torch.ops.cuda.sweep import sweep_cost_volume_l2
 from neuralrgbd_tpu_torch.ops.dpv import _set_vol_border, uniform_dpv
 from neuralrgbd_tpu_torch.ops.sampling import _pixel_to_normalized
 from neuralrgbd_tpu_torch.ops.sweep import _sweep_pixel_coords
+from neuralrgbd_tpu_torch.train.loop import upload_batch
+from neuralrgbd_tpu_torch.train.step import (create_train_state,
+                                             make_train_step)
+from neuralrgbd_tpu_torch.utils.checkpoint import restore_params_partial
 from neuralrgbd_tpu_torch.utils.timing import (call_ms, device_ms, host_ms,
                                                host_us)
 
@@ -220,6 +244,27 @@ TORCH_DETERMINISTIC_DEFAULT = torch.backends.cudnn.deterministic
 SCENE_FRAMES = 40
 T_LOOP = SCENE_FRAMES - 2 * CFG.t_win_r - 1
 CARD: list[str] = []      # nvidia-smi's "name, power.limit", from phase 1
+# Phase 19: training at the operating point with Adam at the JAX tests' LR
+TRAIN = TrainConfig(lr=1e-4)
+TRAIN_STEPS = 8           # the overfit steps on one window
+# One train step on the card vs the same step on the CPU, at the JAX step
+# tests' size: per tensor, max |difference| over the tensor's max |g|. The
+# feature extractor and the K-Net within 5e-2: their ReLUs after
+# batch-statistics BatchNorm have kinks, and an activation within fp32
+# rounding of 0 takes the other branch on one of the two devices
+# (tests/test_torch_train.py measured 3% against JAX on the CPU; the
+# K-Net read 1.45e-3 in PR 8's first chip run). The R-Net (leaky ReLUs,
+# no BatchNorm) within 1e-3.
+SMALL = ModelConfig(feature_dim=16, kv_feature_dim=16, ndepth=8, d_min=0.5,
+                    d_max=4.0)
+SMALL_HW = (64, 96)
+GRAD_TOL = {"feature_extractor": 5e-2, "kv_net": 5e-2, "r_net": 1e-3}
+# Phase 20: a fabricated KITTI drive (1242x375 on disk), read at no-crop
+# 768x256 (a 192x64 DPV grid), KITTI's depth range
+KITTI_CFG = dataclasses.replace(CFG, d_min=1.0, d_max=60.0)
+KITTI_WH = (768, 256)
+KITTI_FRAMES = 30         # 20 after the first and last 5; 15 windows
+T_KITTI = KITTI_FRAMES - 10 - 2 * CFG.t_win_r - 1
 
 failures: list[str] = []
 
@@ -1592,7 +1637,437 @@ def kernel_launches(fn) -> int:
                if e.key.startswith("cudaLaunchKernel"))
 
 
+def reset_launches() -> None:
+    for mod in KERNELS.values():
+        mod.launches = 0
+
+
+def read_launches() -> dict:
+    torch.cuda.synchronize()
+    return {name: mod.launches for name, mod in KERNELS.items()}
+
+
+def train_batch(cfg, device, n_lanes: int, seed: int, img_hw=None) -> dict:
+    """A labelled ``synthetic_batch`` on ``device`` (at ``IMG_HW`` unless
+    given), as the loop uploads it (``lane_valid`` stays on the host)."""
+    batch, _ = synthetic_batch(cfg, n_lanes=n_lanes, img_hw=img_hw or IMG_HW,
+                               seed=seed)
+    del batch["dmap_up4_imgsize_digit"]
+    return upload_batch(batch, device)
+
+
+def train_state(cfg, device, weights=None):
+    """A fresh ``TrainState`` (both R-Net passes) on seeded weights, or on
+    ``weights`` (a state_dict) when given."""
+    model = KVNet(cfg, device=device, seed=SEED)
+    if weights is not None:
+        model.load_state_dict(weights)
+    return create_train_state(cfg, TRAIN, model=model)
+
+
+def random_carry(n: int, D: int, h: int, w: int, device) -> torch.Tensor:
+    g = torch.Generator().manual_seed(SEED)
+    return torch.log_softmax(torch.randn(n, D, h, w, generator=g), 1).to(
+        device)
+
+
+def phase_train(device, loop_info: dict, tmp: str) -> dict:
+    print(f"phase 19: training at {IMG_HW[1]}x{IMG_HW[0]}, D={CFG.ndepth}, "
+          f"V={CFG.n_views}, feature_dim {CFG.feature_dim}, fp32, TF32 off",
+          flush=True)
+    step = make_train_step(CFG, TRAIN)
+    state = train_state(CFG, device)
+    weights = {k: v.clone() for k, v in state.model.state_dict().items()}
+    one = train_batch(CFG, device, 1, SEED)
+    reset_launches()
+    losses = [step(state, one, bv0_on(device), [False]).loss
+              for _ in range(TRAIN_STEPS)]
+    launches = read_launches()
+    check(launches == {"sweep_fused": 0, "resample": TRAIN_STEPS,
+                       "conv3d": 0},
+          f"launches in {TRAIN_STEPS} train steps: {launches} (the carry on "
+          f"the resample kernel once a step; the forward on the plain ops)")
+    vals = torch.stack(losses).cpu()
+    check(bool(torch.isfinite(vals).all()) and float(vals[-1]) < float(vals[0]),
+          f"overfitting one window, the loss falls: "
+          f"{' '.join(f'{float(v):.4f}' for v in vals)}")
+
+    # the carry on the kernel vs on the plain ops: the same forward, so the
+    # same loss bit for bit, and the carry within the resample tolerance
+    two = train_batch(CFG, device, 2, SEED + 1)
+    carry = random_carry(2, CFG.ndepth, IMG_HW[0] // 4, IMG_HW[1] // 4,
+                         device)
+    before = kresample.launches
+    on_kernel = step(train_state(CFG, device, weights), two, carry,
+                     [True, True])
+    n_kernel = read_launches()["resample"] - before
+    plain = make_train_step(CFG, TRAIN, kernels=False)(
+        train_state(CFG, device, weights), two, carry, [True, True])
+    torch.cuda.synchronize()
+    e = max_err(on_kernel.bv_predict, plain.bv_predict)
+    check(n_kernel == 1 and torch.equal(on_kernel.loss, plain.loss)
+          and within(on_kernel.bv_predict, plain.bv_predict,
+                     *TOL["resample"]),
+          f"2-lane train step, carry on the kernel ({n_kernel} launch) vs on "
+          f"the plain ops: loss {float(on_kernel.loss):.6f} vs "
+          f"{float(plain.loss):.6f}, carry max|err| {e:.3e}")
+    launches["resample"] += n_kernel
+    grads_vs_cpu(device)
+    nondeterminism(device, weights)
+    time_train_steps(device, weights)
+    launches = {k: launches[k] + v
+                for k, v in train_cli(loop_info, tmp).items()}
+    return launches
+
+
+def grads_vs_cpu(device) -> None:
+    """One 2-lane step with a valid carry at SMALL on the card and on the
+    CPU, from the same weights: every parameter's gradient."""
+    state = {dev: train_state(SMALL, dev) for dev in ("cpu", device)}
+    state["cpu"].model.load_state_dict(state[device].model.state_dict())
+    carry = random_carry(2, SMALL.ndepth, SMALL_HW[0] // 4, SMALL_HW[1] // 4,
+                         "cpu")
+    out = {}
+    for dev, st in state.items():
+        out[dev] = make_train_step(SMALL, TRAIN)(
+            st, train_batch(SMALL, dev, 2, SEED, SMALL_HW), carry.to(dev),
+            [True, True])
+    worst = {part: 0.0 for part in GRAD_TOL}
+    cpu = dict(state["cpu"].model.named_parameters())
+    for key, p in state[device].model.named_parameters():
+        ref = cpu[key].grad
+        part = key.split(".")[0]
+        rel = float((p.grad.cpu() - ref).abs().max()) / (
+            float(ref.abs().max()) + 1e-30)
+        worst[part] = max(worst[part], rel)
+    check(all(worst[p] <= GRAD_TOL[p] for p in GRAD_TOL),
+          f"one train step at {SMALL_HW[1]}x{SMALL_HW[0]}, D={SMALL.ndepth}, "
+          f"card vs CPU, max|grad diff| / max|grad| per tensor, worst by "
+          f"module: " + ", ".join(f"{p} {v:.2e} (bound {GRAD_TOL[p]})"
+                                  for p, v in worst.items())
+          + f"; loss {float(out[device].loss):.6f} vs "
+          f"{float(out['cpu'].loss):.6f}")
+
+
+def nondeterminism(device, weights) -> None:
+    """Two runs of the same 4 steps (2 lanes, the carry valid from step 2)
+    from the same weights: how far apart they end (ROADMAP C2); the error
+    ``torch.use_deterministic_algorithms(True)`` raises, if any, in one
+    step and in the two backwards suspected of atomics; and two more runs
+    with that mode on around each run (its cost, host clock)."""
+    batches = [train_batch(CFG, device, 2, SEED + 10 + t) for t in range(4)]
+
+    def run():
+        state = train_state(CFG, device, weights)
+        step = make_train_step(CFG, TRAIN)
+        carry, valid, losses = bv0_on(device).expand(2, -1, -1, -1), \
+            [False, False], []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for b in batches:
+            out = step(state, b, carry, valid)
+            carry, valid = out.bv_predict, [True, True]
+            losses.append(out.loss)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t) / len(batches)
+        return state.model.state_dict(), torch.stack(losses).cpu(), carry, ms
+
+    def compare(name, a, b):
+        (pa, la, ca, ma), (pb, lb, cb, mb) = a, b
+        dp = max(float((pa[k] - pb[k]).abs().max()) for k in pa)
+        n_diff = sum(not torch.equal(pa[k], pb[k]) for k in pa)
+        check(all(bool(torch.isfinite(x).all()) for x in (la, lb, ca, cb)),
+              f"two identical 4-step runs ({name}) are finite")
+        print(f"  {CARD[0]}: two identical runs of 4 train steps, {name}: "
+              f"{n_diff}/{len(pa)} parameter tensors differ, max|diff| "
+              f"{dp:.3e} (lr {TRAIN.lr}); losses {la.tolist()} vs "
+              f"{lb.tolist()}, max|diff| {float((la - lb).abs().max()):.3e};"
+              f" final carry max|diff| {max_err(ca, cb):.3e}; {ma:.1f} / "
+              f"{mb:.1f} ms per step (host clock)", flush=True)
+
+    compare("the step as it is (C2)", run(), run())
+    print("  first op without a deterministic implementation under "
+          "torch.use_deterministic_algorithms(True):", flush=True)
+    x = torch.randn(1, 8, 64, 96, device=device, requires_grad=True)
+    g = torch.rand(1, 1, 500, 2, device=device) * 2 - 1
+    cases = {
+        "one train step": lambda: make_train_step(CFG, TRAIN)(
+            train_state(CFG, device, weights), batches[1],
+            bv0_on(device).expand(2, -1, -1, -1), [False, False]),
+        "F.grid_sample backward (the sweep's warp)": lambda:
+            torch.nn.functional.grid_sample(
+                x, g, align_corners=True).sum().backward(),
+        "bilinear F.interpolate backward (upsample_bilinear_ac)": lambda:
+            layers_mod.upsample_bilinear_ac(x, (128, 192)).sum().backward(),
+    }
+    for name, fn in cases.items():
+        print(f"    {name}: {first_nondeterministic(fn)}", flush=True)
+    runs = []
+    for _ in range(2):
+        torch.use_deterministic_algorithms(True)
+        try:
+            runs.append(run())
+        except RuntimeError as e:
+            print(f"  the step under torch.use_deterministic_algorithms(True) "
+                  f"raised: {str(e).strip().splitlines()[0][:160]}",
+                  flush=True)
+            return
+        finally:
+            torch.use_deterministic_algorithms(False)
+    compare("torch.use_deterministic_algorithms(True) around each", *runs)
+
+
+def first_nondeterministic(fn) -> str:
+    """The error ``torch.use_deterministic_algorithms(True)`` raises in
+    ``fn``, first line, or 'none'."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        fn()
+        torch.cuda.synchronize()
+        return "none"
+    except RuntimeError as e:
+        return str(e).strip().splitlines()[0][:160]
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def time_train_steps(device, weights) -> None:
+    """ms per train step (CUDA events around 5 steps after 2 of warm-up,
+    the carry valid), the host time to issue one, and the peak device
+    memory, for 1 and 2 lanes, fp32 and bf16; then the host syncs of one
+    2-lane fp32 step."""
+    for name, cfg, n in (("fp32, 1 lane", CFG, 1), ("fp32, 2 lanes", CFG, 2),
+                         ("bf16, 1 lane", BF16, 1),
+                         ("bf16, 2 lanes", BF16, 2)):
+        state = train_state(cfg, device, weights)
+        step = make_train_step(cfg, TRAIN)
+        batches = [train_batch(cfg, device, n, SEED + 20 + t)
+                   for t in range(7)]
+        carry = bv0_on(device).expand(n, -1, -1, -1).contiguous()
+        for b in batches[:2]:
+            carry = step(state, b, carry, [True] * n).bv_predict
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        host = []
+        start.record()
+        for b in batches[2:]:
+            t = time.perf_counter()
+            out = step(state, b, carry, [True] * n)
+            host.append(1e3 * (time.perf_counter() - t))
+            carry = out.bv_predict
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / len(batches[2:])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"  {CARD[0]}: train step, {name}: {ms:.2f} ms per step "
+              f"(CUDA events over 5 steps), host {statistics.median(host):.2f}"
+              f" ms to issue one, peak device memory {peak:.2f} GiB, loss "
+              f"{float(out.loss):.4f}", flush=True)
+        check(bool(torch.isfinite(out.loss)), f"train step {name}: finite loss")
+        if name == "fp32, 2 lanes":
+            sites = sync_sites(lambda: step(state, batches[-1], carry,
+                                            [True, True]))
+            print(f"  host syncs in one 2-lane fp32 train step: "
+                  f"{sum(sites.values())}", flush=True)
+            for (where, message), k in sorted(sites.items()):
+                print(f"    {k} x {where}: {message}", flush=True)
+        del state, step, batches, carry, out
+        torch.cuda.empty_cache()
+
+
+def train_cli(loop_info: dict, tmp: str) -> dict:
+    """``cli.train_kvnet`` for 3 steps on phase 14's scene at the operating
+    point, then ``cli.test_kvnet --model_path`` on the checkpoint it wrote;
+    returns the kernel launches of the training run."""
+    root, save = loop_info["root"], os.path.join(tmp, "trained")
+    argv = ["--exp_name", "smoke", "--dataset", "scannet", "--dataset_path",
+            root, "--ndepth", str(CFG.ndepth), "--feature_dim",
+            str(CFG.feature_dim), "--d_min", str(CFG.d_min), "--d_max",
+            str(CFG.d_max), "--t_win", str(CFG.t_win_r), "--img_width",
+            str(IMG_HW[1]), "--img_height", str(IMG_HW[0]), "--batch_size",
+            "1", "--LR", str(TRAIN.lr), "--max_steps", "3", "--save_dir",
+            save, "--log_dir", os.path.join(tmp, "runs"), "--device", "cuda"]
+    reset_launches()
+    t0 = time.perf_counter()
+    state, out = quiet(cli_train_kvnet.main, argv)
+    launches = read_launches()
+    ckpt_dir = os.path.join(save, "smoke", "ckpt_00000003")
+    check(state.step == 3 and os.listdir(os.path.join(save, "smoke"))
+          == ["ckpt_00000003"] and launches["resample"] == 3,
+          f"cli.train_kvnet: {state.step} steps in "
+          f"{time.perf_counter() - t0:.1f} s, checkpoints "
+          f"{os.listdir(os.path.join(save, 'smoke'))}, launches {launches}")
+    res = os.path.join(tmp, "trained_test")
+    _, out = quiet(cli_test_kvnet.main, loop_args(root, ckpt_dir, res))
+    n = len(state.model.state_dict())
+    check(f"loaded {n} tensors from {ckpt_dir}" in out,
+          f"cli.test_kvnet --model_path {os.path.basename(ckpt_dir)}: every "
+          f"one of the {n} tensors loaded")
+    check_contract(os.path.join(res, "loop_0"))
+    served = KVNet(CFG, device=next(state.model.parameters()).device,
+                   seed=SEED + 1, single_refine=True)
+    restore_params_partial(ckpt_dir, served)
+    trained = state.model.state_dict()
+    check(all(torch.equal(v, trained[k])
+              for k, v in served.state_dict().items()),
+          "the checkpoint holds the trained weights")
+    return launches
+
+
+def write_kitti_drive(root: str, n_frames: int) -> str:
+    """A KITTI raw drive (calibration, 1242x375 colour frames, OXTS packets
+    driving east) with projected-depth ground truth; the layout of
+    tests/test_kitti.py. Returns the depth root."""
+    W, H = 1242, 375
+    date = "2011_09_26"
+    drive = os.path.join(root, date, f"{date}_drive_0001_sync")
+    gt = os.path.join(root, "depth", "train", f"{date}_drive_0001_sync",
+                      "proj_depth", "groundtruth", "image_02")
+    for d in ("image_02/data", "oxts/data"):
+        os.makedirs(os.path.join(drive, d))
+    os.makedirs(gt)
+    with open(os.path.join(root, date, "calib_cam_to_cam.txt"), "w") as f:
+        f.write(f"S_rect_02: {W} {H}\nR_rect_00: 1 0 0 0 1 0 0 0 1\n"
+                f"P_rect_02: 721.5 0 609.6 -337.0 0 721.5 172.9 0 0 0 1 0\n")
+    with open(os.path.join(root, date, "calib_velo_to_cam.txt"), "w") as f:
+        f.write("R: 0 -1 0 0 0 -1 1 0 0\nT: 0.27 0.0 -0.08\n")
+    with open(os.path.join(root, date, "calib_imu_to_velo.txt"), "w") as f:
+        f.write("R: 1 0 0 0 1 0 0 0 1\nT: -0.8 0.3 0.8\n")
+    import PIL.Image
+
+    rng = np.random.RandomState(SEED)
+    for i in range(n_frames):
+        img = (rng.rand(H, W, 3) * 255).astype(np.uint8)
+        PIL.Image.fromarray(img).save(
+            os.path.join(drive, "image_02", "data", f"{i:010d}.png"))
+        depth = rng.uniform(2.0, 50.0, (H, W))
+        depth[rng.rand(H, W) < 0.7] = 0.0
+        PIL.Image.fromarray((depth * 256).astype(np.uint16)).save(
+            os.path.join(gt, f"{i:010d}.png"))
+        row = np.zeros(30)
+        row[:3] = 49.0, 8.43 + i * 1e-5, 112.0
+        row[5] = 0.1
+        np.savetxt(os.path.join(drive, "oxts", "data", f"{i:010d}.txt"),
+                   row[None])
+    return os.path.join(root, "depth")
+
+
+def phase_kitti(device, tmp: str, errs: dict) -> dict:
+    W, H = KITTI_WH
+    print(f"phase 20: KITTI at no-crop {W}x{H} ({W // 4}x{H // 4} DPV grid): "
+          f"a fabricated {KITTI_FRAMES}-frame drive at 1242x375", flush=True)
+    root = os.path.join(tmp, "kitti")
+    depth_root = write_kitti_drive(root, KITTI_FRAMES)
+    traj = kitti.make_trajectory(0, root, depth_gt_root=depth_root,
+                                 img_size_wh=KITTI_WH, crop_w=None,
+                                 d_candi=KITTI_CFG.d_candi)
+    check(traj.dpv_size_wh == (W // 4, H // 4) and len(traj) ==
+          KITTI_FRAMES - 10, f"the drive: {len(traj)} frames, DPV grid "
+          f"{traj.dpv_size_wh}")
+
+    # the two kernels against their twins at the KITTI shapes
+    win, _, _ = window_batch(traj, CFG.t_win_r, CFG.t_win_r)
+    poses = torch.from_numpy(win["poses"][0]).to(device)
+    cam = camera_from_K(traj.K_dpv, device)
+    d = torch.as_tensor(KITTI_CFG.d_candi, device=device)
+    g = torch.Generator().manual_seed(SEED)
+    C = CFG.feature_dim + 3
+    ref = torch.randn(H // 4, W // 4, C, generator=g).to(device)
+    srcs = torch.randn(CFG.n_views, H // 4, W // 4, C, generator=g).to(device)
+    coords = _sweep_pixel_coords(cam, poses[:, :3, :3], poses[:, :3, 3], d,
+                                 H // 4, W // 4)
+    cost, kept = ksweep.sweep_kernel(planar(ref), planar(srcs), coords,
+                                     CFG.sigma_soft_max, "L2", 3)
+    pcost, pkept = ksweep.sweep_plain(ref, srcs, coords, CFG.sigma_soft_max,
+                                      "L2", 3)
+    e_cost, e_kept = max_err(cost, pcost), max_err(kept, pkept)
+    errs["sweep_fused"].append(max(e_cost, e_kept))
+    check(within(cost, pcost, *TOL["cost"]) and within(kept, pkept,
+                                                       *TOL["kept"]),
+          f"sweep kernel at V=4 D=64 {H // 4}x{W // 4} C={C}, the drive's "
+          f"poses: max|cost err| {e_cost:.3e}, max|kept err| {e_kept:.3e}")
+    lv = random_carry(1, CFG.ndepth, H // 4, W // 4, device)
+    args = (lv, torch.from_numpy(win["pose_next"]).to(device),
+            torch.from_numpy(win["K"]).to(device), d, -math.log(CFG.ndepth))
+    got, want = kresample.predict_next_cuda(*args), \
+        kresample.predict_next_plain(*args)
+    e = max_err(got, want)
+    errs["resample"].append(e)
+    check(within(got, want, *TOL["resample"]),
+          f"resample kernel at (64, {H // 4}, {W // 4}), the drive's "
+          f"pose_next: max|err| {e:.3e}")
+
+    # the loop through the CLI at no-crop: --crop_w equal to --img_width
+    model = KVNet(KITTI_CFG, device=device, seed=SEED, single_refine=True)
+    ckpt = os.path.join(tmp, "kitti.tar")
+    torch.save({"state_dict": {k: v.cpu() for k, v in
+                               model.state_dict().items()}}, ckpt)
+    argv = ["--dataset", "kitti", "--dataset_path", root, "--model_path",
+            ckpt, "--res_dir", os.path.join(tmp, "kitti_out"), "--exp_name",
+            "kitti", "--ndepth", str(CFG.ndepth), "--feature_dim",
+            str(CFG.feature_dim), "--d_min", str(KITTI_CFG.d_min), "--d_max",
+            str(KITTI_CFG.d_max), "--t_win", str(CFG.t_win_r),
+            "--img_width", str(W), "--img_height", str(H), "--crop_w", str(W),
+            "--device", "cuda"]
+    reset_launches()
+    with StepProbe(loop_mod) as probe:
+        quiet(cli_test_kvnet.main, argv)
+    launches = read_launches()
+    check(launches == {"sweep_fused": T_KITTI, "resample": T_KITTI,
+                       "conv3d": 0},
+          f"launches in the KITTI loop: {launches} (expected {T_KITTI} "
+          f"sweeps and {T_KITTI} resamples at {W // 4} wide)")
+    out_dir = os.path.join(tmp, "kitti_out", "kitti_0")
+    files = sorted(os.listdir(out_dir))
+    check(len(files) == 3 * T_KITTI + 1 and read_pgm(os.path.join(
+        out_dir, "d_00000.pgm")).shape == (H, W),
+          f"the export contract: {len(files)} files for {T_KITTI} frames at "
+          f"{W}x{H}")
+    frame = probe.frame_ms()[1:]
+    print(f"  {CARD[0]}: the KITTI loop at {W}x{H}, ms per frame (median of "
+          f"frames 2..{T_KITTI - 1}, CUDA events after each step): "
+          f"{statistics.median(frame):.3f}; per frame "
+          f"{' '.join(f'{x:.1f}' for x in frame)}", flush=True)
+    keys = ("ref", "srcs", "poses", "K", "pose_next")
+    wins = [window_batch(traj, r, CFG.t_win_r)[0]
+            for r in range(CFG.t_win_r, CFG.t_win_r + T_KITTI)]
+    windows = {k: torch.from_numpy(np.stack([b[k] for b in wins])).to(device)
+               for k in keys}
+    depth, conf, _ = make_rollout(KITTI_CFG)(
+        model, windows, uniform_dpv(CFG.ndepth, H // 4, W // 4, device)[None],
+        [False])
+    diff = 0
+    for name, maps in (("d", depth), ("conf", conf)):
+        for t in range(T_KITTI):
+            want = loop_mod._q16(maps[t, 0]).cpu().numpy().view(np.uint16)
+            got = read_pgm(os.path.join(out_dir, f"{name}_{t:05d}.pgm"))
+            diff = max(diff, int(np.abs(got.astype(np.int64)
+                                        - want.astype(np.int64)).max()))
+    check(diff == 0, f"all {T_KITTI} frames' maps equal the rollout's on the "
+          f"same windows: max |diff| {diff} unit(s)")
+
+    # two train steps on the drive's labelled windows at no-crop
+    state = create_train_state(KITTI_CFG, TRAIN, model=KVNet(
+        KITTI_CFG, device=device, seed=SEED))
+    step = make_train_step(KITTI_CFG, TRAIN)
+    carry, valid = uniform_dpv(CFG.ndepth, H // 4, W // 4, device)[None], \
+        [False]
+    reset_launches()
+    for ref_idx in (CFG.t_win_r, CFG.t_win_r + 1):
+        b, _, ok = window_batch(traj, ref_idx, CFG.t_win_r, with_labels=True)
+        out = step(state, upload_batch(b, device), carry, valid)
+        carry, valid = out.bv_predict, [ok]
+    train_launches = read_launches()
+    check(train_launches["resample"] == 2 and bool(torch.isfinite(out.loss))
+          and carry.shape[-1] == W // 4,
+          f"2 train steps on the drive at no-crop: loss "
+          f"{float(out.loss):.4f}, launches {train_launches}")
+    return {k: launches[k] + train_launches[k] for k in launches}
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     device = phase_device()
     phase_build()
     errs = {name: [] for name in KERNELS}
@@ -1617,6 +2092,12 @@ def main() -> int:
         launches["conv3d"] += phase_coarse(model, device, frames, depth,
                                            loop_info, tmp)
         phase_bf16(model, device, frames, depth, loop_info)
+        for path in (phase_train(device, loop_info, tmp),
+                     phase_kitti(device, tmp, errs)):
+            for name, n in path.items():
+                launches[name] += n
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of command "
+          f"time from phase 1 on", flush=True)
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed:", *failures,
               sep="\n  ", file=sys.stderr)

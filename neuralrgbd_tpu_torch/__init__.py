@@ -7,16 +7,24 @@ against it by ``tests/test_torch_*.py``.
 
 Layer map:
 
-- ``config``      ``ModelConfig`` (the port's own copy of the JAX package's).
-- ``data``        seeded synthetic windows for tests and chip runs.
+- ``config``      ``ModelConfig`` and ``TrainConfig`` (the port's own copies
+                  of the JAX package's).
+- ``data``        the data layer (ScanNet, 7-Scenes, KITTI, the training
+                  batch scheduler and augmentation: copies of the JAX
+                  package's) and seeded synthetic windows and scenes.
 - ``ops``         camera, grid sampling, plane sweep, DPV algebra (plain torch).
 - ``ops.cuda``    hand-written CUDA C++ kernels for sm_90a (sources in
                   ``csrc/``: the plane sweep, the DPV prediction step and
                   the 3x3x3 conv), each beside its plain PyTorch twin, and
                   the fast K-Net chain on the conv kernel.
 - ``models``      D-Net feature extractor, K-Net, R-Net, KVNet as ``nn.Module``s.
-- ``infer``       the per-frame inference step and the video rollout.
-- ``utils``       the JAX->torch weight bridge, timers for the card.
+- ``infer``       the per-frame inference step, the video rollout and the
+                  production loop with its export.
+- ``train``       the losses, the train step (its carry on the resample
+                  kernel) and the epoch loop.
+- ``cli``         the test, evaluate and train command lines.
+- ``utils``       the JAX->torch weight bridge, checkpoints, logging,
+                  timers for the card.
 - ``tools``       measurement scripts run on the card (kernel variants,
                   an older kernel beside the current one).
 

@@ -27,8 +27,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dataset_path", type=str, default=".")
     p.add_argument("--split_file", type=str, default=None)
     p.add_argument("--model_path", type=str, default=None,
-                   help="reference torch checkpoint (.tar/.pth/.pt); "
-                        "random init if omitted")
+                   help="reference torch checkpoint (.tar/.pth/.pt) or a "
+                        "checkpoint directory of cli.train_kvnet; random "
+                        "init if omitted")
     p.add_argument("--t_win", type=int, default=2)
     p.add_argument("--d_min", type=float, default=0.1)
     p.add_argument("--d_max", type=float, default=5.0)
@@ -109,9 +110,12 @@ def make_get_traj(args, cfg):
                 img_size_wh=img_wh, d_candi=cfg.d_candi,
             )
         if args.dataset == "kitti":
-            raise NotImplementedError(
-                "--dataset kitti: the KITTI loader (data/kitti.py) is not "
-                "ported yet (ROADMAP Queue A)")
+            from neuralrgbd_tpu_torch.data.kitti import make_trajectory
+
+            return make_trajectory(
+                idx, args.dataset_path, img_size_wh=img_wh,
+                crop_w=args.crop_w, d_candi=cfg.d_candi,
+            )
         raise ValueError(args.dataset)
 
     return get_traj
@@ -150,7 +154,9 @@ def main(argv=None):
 
 def _init_or_load_params(cfg, args):
     """``(KVNet on args.device, torch_imported)``: loaded from a reference
-    torch checkpoint, or a seeded random init without ``--model_path``."""
+    torch checkpoint (strictly) or from a checkpoint directory of the
+    port's train CLI (a filtered partial load, as JAX loads its orbax
+    directories), or a seeded random init without ``--model_path``."""
     from neuralrgbd_tpu_torch.models.kvnet import KVNet
 
     model = KVNet(cfg, device=args.device, seed=0, single_refine=True)
@@ -166,11 +172,14 @@ def _init_or_load_params(cfg, args):
                                   load_torch_checkpoint(args.model_path))
         return model, True
     if args.model_path:
-        raise NotImplementedError(
-            f"--model_path {args.model_path!r}: only reference torch "
-            f"checkpoints (.tar/.pth/.pt) load in the port; orbax checkpoint "
-            f"directories (the JAX package's utils/checkpoint.py) need its "
-            f"port (ROADMAP Queue A item 4)")
+        # a checkpoint directory of the port's train CLI (ckpt_XXXXXXXX/);
+        # an orbax directory of the JAX package raises NotImplementedError
+        from neuralrgbd_tpu_torch.utils.checkpoint import (
+            restore_params_partial)
+
+        _, n_hit = restore_params_partial(args.model_path, model)
+        print(f"loaded {n_hit} tensors from {args.model_path}")
+        return model, False
     print("WARNING: no --model_path given; using random init")
     return model, False
 

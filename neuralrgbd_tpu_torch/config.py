@@ -1,7 +1,8 @@
-"""Model configuration (copy of ``neuralrgbd_tpu/config.py:ModelConfig``).
+"""Model and training configuration (copies of ``neuralrgbd_tpu/config.py``'s
+``ModelConfig`` and ``TrainConfig``).
 
-The port keeps its own copy so that it imports nothing of the JAX package;
-``tests/test_torch_standalone.py`` holds it equal to the original, field
+The port keeps its own copies so that it imports nothing of the JAX package;
+``tests/test_torch_standalone.py`` holds them equal to the originals, field
 for field and property for property.
 """
 
@@ -100,3 +101,34 @@ class ModelConfig:
     def kvnet_in_channels(self) -> int:
         # KVNET.py:75: 3*(t_win_r*2+1) + 1  (V warped RGB + ref RGB + dpv diff)
         return 3 * (2 * self.t_win_r + 1) + 1
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 1e-5               # --LR (Adam, betas (.9,.999))
+    # LR schedule (deviation: the reference trains at constant LR,
+    # train_KVNet.py:264 — round-3 campaigns showed post-peak regression
+    # that a decay schedule removes; TRAIN.md "Round-4"). 'constant'
+    # reproduces the reference. 'cosine' decays lr -> lr*lr_min_ratio over
+    # lr_decay_steps (with lr_warmup_steps linear warmup); 'step' halves
+    # the LR every lr_decay_steps.
+    lr_schedule: str = "constant"
+    lr_decay_steps: int = 0        # total decay horizon (cosine) / period (step)
+    lr_min_ratio: float = 0.1      # cosine floor as a fraction of lr
+    lr_warmup_steps: int = 0
+    n_epoch: int = 10              # local_train_scanNet.sh (KITTI: 20)
+    batch_size: int = 0            # 0 => one lane per device
+    pose_noise_level: float = 0.0  # --pose_noise_level
+    # photometric augmentation (data/augment.py): the reference SHIPS the
+    # jitter+PCA-lighting suite (utils/preprocess.py:67-77) but never wires
+    # it into its train loop; here --augment applies it with one parameter
+    # draw per lane per trajectory group (photoconsistency-preserving)
+    augment: bool = False
+    weight_var: float = 1e-3       # --weight_var (L1 loss branch)
+    loss_type: str = "NLL"
+    grad_clip_max: Optional[float] = None  # reference parsed but never applied
+    save_model_interv: int = 5000
+    tb_add_img_interv: int = 50
+    seed: int = 0
+    exp_name: str = "exp"
+    save_dir: str = "saved_models"

@@ -111,6 +111,8 @@ class _FrameSource:
                  capacity: int, workers: int = 3):
         self._paths = traj.img_paths
         self._size = traj.img_size_wh
+        # KITTI's centre crop after the resize (KittiTrajectory.raw_crop_w)
+        self._crop_w = getattr(traj, "raw_crop_w", None)
         self._device = device
         self._capacity = capacity
         self._pool = ThreadPoolExecutor(max_workers=workers)
@@ -128,7 +130,7 @@ class _FrameSource:
         start = next(reversed(self._raw), -1) + 1
         for idx in range(start, min(upto, len(self._paths) - 1) + 1):
             self._raw[idx] = self._pool.submit(pp.load_raw, self._paths[idx],
-                                               self._size)
+                                               self._size, self._crop_w)
         while len(self._raw) > self._capacity:
             self._raw.popitem(last=False)
 

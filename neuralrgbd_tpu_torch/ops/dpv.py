@@ -22,6 +22,17 @@ def depth_regression(dpv: torch.Tensor, d_candi: torch.Tensor) -> torch.Tensor:
     return torch.einsum("...dhw,d->...hw", dpv.exp(), d_candi)
 
 
+def depth_variance(dpv: torch.Tensor, depth_mean: torch.Tensor,
+                   d_candi: torch.Tensor, d_sigma: float = 1.0) -> torch.Tensor:
+    """The reference's depth variance over a log-DPV (mutils/misc.py:550-572):
+    mean_d (p(d) * d - E[d])^2 / (2 d_sigma^2), with p(d) * d, not d,
+    inside the square, as the L1 training loss regularizes it.
+    (..., D, H, W) -> (..., H, W)."""
+    D = d_candi.shape[0]
+    sq = (dpv.exp() * d_candi[:, None, None] - depth_mean[..., None, :, :]) ** 2
+    return sq.sum(dim=-3) / (2.0 * d_sigma ** 2) / D
+
+
 def confidence_map(dpv: torch.Tensor) -> torch.Tensor:
     """Probability of the argmax depth bin: exp(max_d log-DPV)."""
     return dpv.amax(dim=-3).exp()

@@ -1,0 +1,154 @@
+"""The host training loop (counterpart of ``neuralrgbd_tpu/train/loop.py``;
+reference: train_KVNet.py:270-377).
+
+Epochs -> trajectory batch groups -> per-frame steps with the DPV carry.
+Per-lane validity replaces the reference's NaN-lane surgery: an invalid
+window zeroes that lane's loss AND invalidates its carry for the next
+frame (``fill_BVs_predict``/``get_valid_BVs``, batch_loader.py:30-76).
+Steps where every lane is invalid are skipped on the host, as the
+reference's ``n_valid_batch == 0`` branch (train_KVNet.py:320-323).
+
+On the card the main thread does not wait for the steps: each batch goes
+up once, from pinned memory, with non-blocking copies, and the losses
+stay on the device until one copy every 20 steps brings them down.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from neuralrgbd_tpu_torch.config import ModelConfig, TrainConfig
+from neuralrgbd_tpu_torch.data.batch_loader import BatchScheduler
+from neuralrgbd_tpu_torch.infer.loop import _upload
+from neuralrgbd_tpu_torch.train.step import TrainState, make_train_step
+from neuralrgbd_tpu_torch.utils.checkpoint import save_checkpoint
+from neuralrgbd_tpu_torch.utils.logging import MetricsWriter
+
+FLUSH_EVERY = 20   # steps per copy of the losses to the host
+
+
+def upload_batch(batch_np: dict, device) -> dict:
+    """A frame batch on ``device``: one non-blocking copy per array from
+    pinned memory; ``lane_valid`` stays on the host (the step reads it)."""
+    device = torch.device(device)
+    return {k: v if k == "lane_valid" else _upload(v, device)
+            for k, v in batch_np.items()}
+
+
+def train_epochs(
+    state: TrainState,
+    cfg: ModelConfig,
+    tcfg: TrainConfig,
+    make_traj: Callable[[int], "Trajectory"],
+    n_traj: int,
+    batch_size: int,
+    n_epoch: Optional[int] = None,
+    train_step=None,
+    log_dir: Optional[str] = None,
+    save_dir: Optional[str] = None,
+    max_steps: Optional[int] = None,
+    verbose: bool = True,
+    eval_every: Optional[int] = None,
+    eval_fn: Optional[Callable] = None,
+) -> TrainState:
+    """Train ``state`` in place and return it. The loop runs where the
+    model is (the card for a model built there). ``eval_fn(state,
+    total_iter)`` runs every ``eval_every`` steps (a holdout evaluation
+    without restarting the epoch stream). The pose noise draws from a
+    generator on the model's device seeded with ``tcfg.seed``."""
+    train_step = train_step or make_train_step(cfg, tcfg)
+    writer = MetricsWriter(log_dir) if log_dir else None
+    device = next(state.model.parameters()).device
+    generator = torch.Generator(device=device).manual_seed(tcfg.seed)
+
+    n_epoch = n_epoch or tcfg.n_epoch
+    total_iter = 0
+    last_loss = float("nan")
+    t_start = time.time()
+
+    # each step's loss stays on the device; one copy per flush brings them
+    # down, so the main thread never waits for the step it just issued
+    loss_buf: list = []
+
+    def flush_losses():
+        nonlocal last_loss
+        if not loss_buf:
+            return last_loss
+        vals = torch.stack([l for _, l in loss_buf]).cpu().numpy()
+        if writer:
+            for (it, _), v in zip(loss_buf, vals):
+                writer.scalar("data/train_error", float(v), it)
+        last_loss = float(vals[-1])
+        loss_buf.clear()
+        return last_loss
+
+    def finish():
+        flush_losses()
+        if save_dir:
+            save_checkpoint(save_dir, state.step, state)
+        if writer:
+            writer.close()
+        return state
+
+    D = cfg.ndepth
+    for epoch in range(n_epoch):
+        sched = BatchScheduler(make_traj, n_traj, batch_size,
+                               t_win_r=cfg.t_win_r, seed=tcfg.seed + epoch,
+                               augment=tcfg.augment)
+        for group_idx, group in enumerate(sched):
+            w, h = group.lanes[0].dpv_size_wh
+            bv_predict = torch.full((batch_size, D, h, w), -math.log(D),
+                                    dtype=torch.float32, device=device)
+            carry_valid = np.zeros(batch_size, bool)
+
+            for frame_idx in range(group.traj_len):
+                batch_np, refs = group.frame_batch(frame_idx)
+                lane_valid = batch_np["lane_valid"]
+
+                if lane_valid.sum() == 0:
+                    carry_valid[:] = False
+                    total_iter += 1
+                    continue
+
+                out = train_step(state, upload_batch(batch_np, device),
+                                 bv_predict, carry_valid.copy(), generator)
+                bv_predict = out.bv_predict
+                loss_buf.append((total_iter + 1, out.loss))
+                # a lane's carry is only valid if THIS window was valid
+                carry_valid = lane_valid.copy()
+                total_iter += 1
+
+                if writer and total_iter % tcfg.tb_add_img_interv == 0:
+                    dl = out.depth_lowres[0].cpu().numpy()
+                    gt = refs[0].dmap if refs[0].dmap is not None else dl
+                    writer.image("train/depth_kv|gt",
+                                 np.hstack([dl, gt]), total_iter)
+
+                if total_iter % FLUSH_EVERY == 0:
+                    flush_losses()
+                    if verbose:
+                        fps = total_iter / (time.time() - t_start)
+                        print(f"epoch {epoch} group {group_idx} frame "
+                              f"{frame_idx}/{group.traj_len} iter "
+                              f"{total_iter} loss {last_loss:.4f} "
+                              f"({fps:.2f} it/s)", flush=True)
+
+                if save_dir and total_iter % tcfg.save_model_interv == 0:
+                    save_checkpoint(save_dir, state.step, state,
+                                    extra={"epoch": epoch,
+                                           "group": group_idx,
+                                           "frame": frame_idx})
+
+                if (eval_fn is not None and eval_every
+                        and total_iter % eval_every == 0):
+                    flush_losses()
+                    eval_fn(state, total_iter)
+
+                if max_steps is not None and total_iter >= max_steps:
+                    return finish()
+    return finish()

@@ -205,3 +205,43 @@ def load_reference_state_dict(model: torch.nn.Module, state_dict) -> dict:
     model.load_state_dict(kept, strict=True)
     return {"n_imported": len(kept), "n_params_total": len(own),
             "unmatched_torch_keys": skipped}
+
+
+@torch.no_grad()
+def import_psmnet_state_dict(state_dict, model: torch.nn.Module):
+    """Warm-start the feature extractor from a PSMNet checkpoint, in place
+    (JAX: ``neuralrgbd_tpu/utils/torch_import.py:281``; the reference's
+    ``load_pretrained_PSMNet``, utils/models.py:12-37).
+
+    A partial load: every checkpoint tensor named ``feature_extraction.*``
+    (``module.``/``model.`` prefixes stripped) whose key, under the model's
+    ``feature_extractor.`` prefix, exists with the same shape is copied in;
+    everything else keeps its value. PSMNet's ``running_*`` and
+    ``num_batches_tracked`` entries have no counterpart (batch-statistics
+    BatchNorm). Returns ``(model, report)`` with JAX's report keys.
+    """
+    own = model.state_dict()
+    used, skipped, mismatched = [], [], []
+    for tkey, tval in state_dict.items():
+        key = _strip_prefix(str(tkey))
+        if not key.startswith("feature_extraction."):
+            continue
+        key = "feature_extractor." + key
+        if "num_batches_tracked" in key or "running_" in key:
+            continue
+        if key not in own:
+            skipped.append(key)
+            continue
+        val = torch.as_tensor(np.asarray(tval), dtype=torch.float32)
+        if tuple(val.shape) != tuple(own[key].shape):
+            mismatched.append((key, tuple(val.shape), tuple(own[key].shape)))
+            continue
+        own[key].copy_(val)
+        used.append(key)
+    report = {
+        "n_imported": len(used),
+        "n_params_total": len(own),
+        "unmatched_torch_keys": skipped,
+        "shape_mismatches": mismatched,
+    }
+    return model, report

@@ -145,11 +145,10 @@ def test_loader_raises_on_a_wrong_shape(variables, state_dict):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--dataset", "kitti"],
     ["--refine_net", "DGF"],
     ["--multi_device", "--traj_idx", "0", "1"],
     ["--model_path", "orbax_checkpoint_dir"],
-], ids=["kitti", "dgf", "multi_device", "orbax"])
+], ids=["dgf", "multi_device", "orbax"])
 def test_unported_options_raise(run, extra):
     argv = [a for a in run["common"] if not a.endswith(".tar")]
     argv.remove("--model_path")

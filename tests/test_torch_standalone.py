@@ -4,7 +4,7 @@ its model is built on the card unless the caller asks for the CPU.
 
 - ``neuralrgbd_tpu_torch.config.ModelConfig``: the same fields and defaults
   (``dataclasses.asdict``) and the same properties, at the defaults and at
-  a test configuration;
+  a test configuration; ``TrainConfig`` the same way;
 - ``neuralrgbd_tpu_torch.data.synthetic.synthetic_batch``: array for array
   equal to the original at two seeds;
 - ``neuralrgbd_tpu_torch.utils.torch_import.build_name_map``: dict-equal
@@ -16,6 +16,10 @@ its model is built on the card unless the caller asks for the CPU.
   nan and missing-file poses), ``data.sevenscenes`` and the
   ``Trajectory``/``window_batch`` arrays; ``infer.export``'s files;
   ``infer.metrics``; ``infer.loop.resolve_cache_features``' four cases;
+- the training data and logging: ``data.batch_loader``'s groups, offsets
+  and batches (plain and augmented), ``data.augment``'s functions, and
+  ``utils.logging``'s files (``save_args``, ``Tee``, ``MetricsWriter``);
+  ``data.kitti``: ``tests/test_torch_kitti.py``;
 - hygiene: no ``.py`` file of the port, nor ``chip_smoke.py``, imports
   ``jax``, ``flax`` or ``neuralrgbd_tpu`` (checked on the syntax tree), and
   importing every port module leaves ``jax`` and ``neuralrgbd_tpu`` out of
@@ -32,6 +36,8 @@ import numpy as np
 import pytest
 import torch
 
+import neuralrgbd_tpu.data.augment as jaugment
+import neuralrgbd_tpu.data.batch_loader as jbatch_loader
 import neuralrgbd_tpu.data.preprocess as jpp
 import neuralrgbd_tpu.data.scannet as jscannet
 import neuralrgbd_tpu.data.sevenscenes as jsevenscenes
@@ -40,11 +46,15 @@ import neuralrgbd_tpu.infer.export as jexport
 import neuralrgbd_tpu.infer.loop as jloop
 import neuralrgbd_tpu.infer.metrics as jmetrics
 import neuralrgbd_tpu.ops.camera as jcamera
+import neuralrgbd_tpu.utils.logging as jlogging
 from neuralrgbd_tpu.config import ModelConfig as JModelConfig
+from neuralrgbd_tpu.config import TrainConfig as JTrainConfig
 from neuralrgbd_tpu.data.synthetic import synthetic_batch as jsynthetic_batch
 from neuralrgbd_tpu.data.trajectory import window_batch as jwindow_batch
 from neuralrgbd_tpu.utils.torch_import import build_name_map as jbuild_name_map
 
+import neuralrgbd_tpu_torch.data.augment as augment
+import neuralrgbd_tpu_torch.data.batch_loader as batch_loader
 import neuralrgbd_tpu_torch.data.preprocess as pp
 import neuralrgbd_tpu_torch.data.scannet as scannet
 import neuralrgbd_tpu_torch.data.sevenscenes as sevenscenes
@@ -52,7 +62,8 @@ import neuralrgbd_tpu_torch.data.synthetic as synthetic
 import neuralrgbd_tpu_torch.infer.export as export
 import neuralrgbd_tpu_torch.infer.metrics as metrics
 import neuralrgbd_tpu_torch.ops.camera as camera
-from neuralrgbd_tpu_torch.config import ModelConfig
+import neuralrgbd_tpu_torch.utils.logging as logging_
+from neuralrgbd_tpu_torch.config import ModelConfig, TrainConfig
 from neuralrgbd_tpu_torch.data.synthetic import synthetic_batch
 from neuralrgbd_tpu_torch.data.trajectory import window_batch
 from neuralrgbd_tpu_torch.infer.loop import resolve_cache_features
@@ -77,6 +88,15 @@ def test_model_config_copy_equals_original(fields):
             np.testing.assert_array_equal(a, b, err_msg=name)
         else:
             assert a == b, name
+
+
+@pytest.mark.parametrize("fields", [
+    {}, dict(lr=3e-4, lr_schedule="cosine", lr_decay_steps=50,
+             lr_warmup_steps=5, grad_clip_max=2.0, loss_type="L1")],
+    ids=["defaults", "custom"])
+def test_train_config_copy_equals_original(fields):
+    assert dataclasses.asdict(TrainConfig(**fields)) == dataclasses.asdict(
+        JTrainConfig(**fields))
 
 
 @pytest.mark.parametrize("seed", [0, 7])
@@ -382,3 +402,72 @@ def test_importing_the_port_loads_no_jax():
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
+
+
+@pytest.mark.parametrize("augmented", [False, True], ids=["plain", "augment"])
+def test_batch_loader_copy_equals_original(scene, augmented):
+    """Two epochs' worth of groups (3 trajectories in lanes of 2, the
+    ragged one dropped): the order, the offsets, the lengths and the
+    labelled batches of the first group's frames."""
+    d_candi = np.linspace(0.5, 4.0, 8).astype(np.float32)
+
+    def factory(mod):
+        return lambda i: mod.make_trajectory(0, 5, str(scene[0]),
+                                             img_size_wh=(96, 64),
+                                             d_candi=d_candi)
+
+    for seed in (0, 1):
+        got = batch_loader.BatchScheduler(factory(scannet), 3, 2, seed=seed,
+                                          augment=augmented)
+        want = jbatch_loader.BatchScheduler(factory(jscannet), 3, 2,
+                                            seed=seed, augment=augmented)
+        assert len(got) == len(want) == 1 and got.groups == want.groups
+        g, w = next(iter(got)), next(iter(want))
+        assert (g.traj_len, g.offsets) == (w.traj_len, w.offsets)
+        for t in (0, g.traj_len - 1):
+            assert_trees_equal(g.frame_batch(t), w.frame_batch(t), f"t {t}")
+
+
+def test_augment_copy_equals_original(scene):
+    img = np.random.RandomState(0).rand(16, 24, 3).astype(np.float32)
+    for name in ("lighting", "saturation", "brightness", "contrast"):
+        args = (0.3,) if name != "lighting" else ()
+        got = getattr(augment, name)(img, np.random.RandomState(1), *args)
+        want = getattr(jaugment, name)(img, np.random.RandomState(1), *args)
+        assert_trees_equal(got, want, name)
+    assert_trees_equal(augment.grayscale(img), jaugment.grayscale(img))
+    for order in (None, [2, 0, 1]):
+        assert_trees_equal(
+            augment.color_jitter(img, np.random.RandomState(2), order=order),
+            jaugment.color_jitter(img, np.random.RandomState(2), order=order))
+    for name in ("IMAGENET_PCA_EIGVAL", "IMAGENET_PCA_EIGVEC"):
+        assert_trees_equal(getattr(augment, name), getattr(jaugment, name))
+    traj = scannet.make_trajectory(0, 5, str(scene[0]), img_size_wh=(96, 64))
+    rec = traj.frame(1)
+    assert_trees_equal(augment.make_window_augment(7)(rec),
+                       jaugment.make_window_augment(7)(rec))
+
+
+def test_logging_copy_equals_original(tmp_path, capsys):
+    args = TrainConfig(lr=2e-4)
+    logging_.save_args(str(tmp_path / "port" / "a.txt"), args)
+    jlogging.save_args(str(tmp_path / "jax" / "a.txt"), args)
+    ns = {"b": 1, "a": "x"}
+    logging_.save_args(str(tmp_path / "port" / "b.txt"), ns)
+    jlogging.save_args(str(tmp_path / "jax" / "b.txt"), ns)
+    assert_dirs_equal(tmp_path / "port", tmp_path / "jax")
+    for mod, name in ((logging_, "port_tee"), (jlogging, "jax_tee")):
+        tee = mod.Tee(str(tmp_path / name)).install()
+        try:
+            print("step 1 loss 2.5")
+        finally:
+            tee.uninstall()
+        assert open(tee.path).read() == "step 1 loss 2.5\n"
+    assert capsys.readouterr().out == "step 1 loss 2.5\n" * 2
+    got = logging_.MetricsWriter(str(tmp_path / "port_tb"))
+    want = jlogging.MetricsWriter(str(tmp_path / "jax_tb"))
+    assert (got._w is None) == (want._w is None)
+    for writer in (got, want):
+        writer.scalar("data/train_error", 1.5, 1)
+        writer.image("train/depth", np.ones((4, 6), np.float32), 1)
+        writer.close()
