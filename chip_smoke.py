@@ -249,16 +249,16 @@ TRAIN = TrainConfig(lr=1e-4)
 TRAIN_STEPS = 8           # the overfit steps on one window
 # One train step on the card vs the same step on the CPU, at the JAX step
 # tests' size: per tensor, max |difference| over the tensor's max |g|. The
-# feature extractor and the K-Net within 5e-2: their ReLUs after
-# batch-statistics BatchNorm have kinks, and an activation within fp32
-# rounding of 0 takes the other branch on one of the two devices
-# (tests/test_torch_train.py measured 3% against JAX on the CPU; the
-# K-Net read 1.45e-3 in PR 8's first chip run). The R-Net (leaky ReLUs,
-# no BatchNorm) within 1e-3.
+# feature extractor within 5e-2: its ReLUs after batch-statistics
+# BatchNorm have kinks, and an activation within fp32 rounding of 0 takes
+# the other branch on one of the two devices (tests/test_torch_train.py
+# measured 3% against JAX on the CPU, and agreement to 1e-6 in float64).
+# The K-Net (the same ReLUs after BatchNorm) within 5e-3: it read 1.45e-3
+# on an H100. The R-Net (leaky ReLUs, no BatchNorm) within 1e-3.
 SMALL = ModelConfig(feature_dim=16, kv_feature_dim=16, ndepth=8, d_min=0.5,
                     d_max=4.0)
 SMALL_HW = (64, 96)
-GRAD_TOL = {"feature_extractor": 5e-2, "kv_net": 5e-2, "r_net": 1e-3}
+GRAD_TOL = {"feature_extractor": 5e-2, "kv_net": 5e-3, "r_net": 1e-3}
 # Phase 20: a fabricated KITTI drive (1242x375 on disk), read at no-crop
 # 768x256 (a 192x64 DPV grid), KITTI's depth range
 KITTI_CFG = dataclasses.replace(CFG, d_min=1.0, d_max=60.0)

@@ -164,22 +164,18 @@ def main(argv=None):
 
 
 def _dataset_factory(args, cfg, img_wh):
-    def with_labels_cfg(make):
-        if not cfg.refine_dup:
-            return make
-        return lambda i: make(i).enable_up4_labels()
-
+    # the up4 labels of JAX's refine_dup training come back with that head
+    # (KVNet raises for it)
     if args.dataset == "synthetic":
         from neuralrgbd_tpu_torch.data.synthetic import synthetic_dataset
 
-        make, n = synthetic_dataset(cfg, img_size_wh=img_wh)
-        return with_labels_cfg(make), n
+        return synthetic_dataset(cfg, img_size_wh=img_wh)
     if args.dataset == "scannet":
         from neuralrgbd_tpu_torch.data.scannet import (make_trajectory,
                                                        n_trajectories)
 
         n = n_trajectories(args.dataset_path, args.split_file)
-        return with_labels_cfg(lambda i: make_trajectory(
+        return (lambda i: make_trajectory(
             i, args.frame_interv, args.dataset_path, args.split_file,
             img_size_wh=img_wh, d_candi=cfg.d_candi)), n
     if args.dataset == "7scenes":
@@ -187,7 +183,7 @@ def _dataset_factory(args, cfg, img_wh):
                                                            n_trajectories)
 
         n = n_trajectories(args.dataset_path)
-        return with_labels_cfg(lambda i: make_trajectory(
+        return (lambda i: make_trajectory(
             i, args.dataset_path, img_size_wh=img_wh,
             d_candi=cfg.d_candi)), n
     if args.dataset == "kitti":
@@ -195,7 +191,7 @@ def _dataset_factory(args, cfg, img_wh):
                                                      n_trajectories)
 
         n = n_trajectories(args.dataset_path)
-        return with_labels_cfg(lambda i: make_trajectory(
+        return (lambda i: make_trajectory(
             i, args.dataset_path, img_size_wh=img_wh,
             d_candi=cfg.d_candi)), n
     raise ValueError(args.dataset)

@@ -29,10 +29,10 @@ How the port meets JAX's semantics:
   has no backward. The carry runs on the resample kernel,
   ``predict_next_cuda``, one launch for all lanes.
 - The whole step, backward and update included, runs inside
-  ``infer.step.step_numerics``: fp32 convs (no TF32) and deterministic
-  cuDNN algorithms. The backward of ``F.grid_sample`` and of bilinear
-  ``F.interpolate`` still accumulate with atomics on the card, so two
-  runs differ in the last bits (ROADMAP Queue C, C2).
+  ``infer.step.step_numerics(False)``: fp32 convs (no TF32) and
+  deterministic cuDNN algorithms. Two runs on the card still differ in
+  the last bits, from an op that ``torch.use_deterministic_algorithms``
+  does not flag; which one is not yet known (ROADMAP Queue C, C2).
 - No host sync: the loss stays on the device.
 """
 
@@ -165,8 +165,7 @@ class TrainStepOutput(NamedTuple):
     depth_lowres: torch.Tensor  # (N, h, w) E[d] of the fused DPV (logging)
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, kernels: bool = True,
-                    tf32: bool = False):
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, kernels: bool = True):
     """Returns ``train_step(state, batch, bv_predict, bv_valid,
     generator=None) -> TrainStepOutput``; ``state`` is updated in place and
     returned.
@@ -182,7 +181,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, kernels: bool = True,
 
     ``kernels`` runs the carry on the resample kernel (its plain twin for
     CPU tensors); False runs it on the plain ops lane by lane. The forward
-    runs on the plain ops either way. ``tf32``: see ``make_infer_step``.
+    runs on the plain ops either way.
     """
     check_supported(cfg)
     if tcfg.loss_type not in ("NLL", "L1"):
@@ -232,7 +231,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, kernels: bool = True,
             poses = apply_pose_noise(poses, eps_r, eps_t,
                                      tcfg.pose_noise_level)
         lanes = dict(batch, poses=poses)
-        with step_numerics(tf32):
+        with step_numerics(False):
             state.optimizer.zero_grad(set_to_none=False)
             loss = torch.zeros((), device=dev)
             dpvs = []

@@ -24,7 +24,8 @@ Tolerances, each stated at its assert:
   agrees to 1e-6 (``test_feature_extractor_backward_matches_jax_in_fp64``);
 - parameters after several Adam steps: Adam moves an element by about
   lr * sign(g) where g is near 0, so a rounding flip of that sign moves
-  it by up to 2 lr per step: atol 2 lr times the number of steps.
+  it by up to 2 lr per step. The updates are held instead, by sign and
+  median (``test_train_epochs_matches_jax``).
 """
 
 import os
@@ -474,9 +475,27 @@ def recording(step, losses):
 
 def test_train_epochs_matches_jax(variables, jax_step, scene_root):
     """4 steps of a 2-lane group (frame 0 without a carry, then 3 with):
-    each step's loss and the final parameters."""
+    each step's loss, and the update each parameter took.
+
+    The parameters of the two programs drift apart by up to 2 lr a step
+    where a near-zero gradient flips its sign (module docstring), as far
+    as Adam moves any element in 4 steps (~4 lr). So this test holds what
+    the updates did, against a run of the port at lr 0:
+
+    - the loss of step 1 (equal parameters) within fp32 rounding; the
+      losses of steps 2-4 within 2% of how far the updates moved them
+      (|port - JAX| over |JAX - lr 0|, measured 1.6e-4, 3.8e-3, 1.1e-2);
+    - each module's update p_final - p_init against JAX's, where JAX's
+      moved an element by more than lr / 2: the same sign on at least
+      99% of the elements (measured 99.71% for the feature extractor,
+      99.79% for the K-Net, 99.994% for the R-Net), and a median
+      |difference| well under lr (measured 0.118, 0.027 and 0.0019 lr;
+      JAX's median update is 2.3-3.9 lr).
+    """
     steps = 4
-    jlosses, losses = [], []
+    make = lambda i: make_trajectory(0, 5, scene_root, img_size_wh=IMG_WH,
+                                     d_candi=CFG.d_candi)
+    jlosses, losses, frozen = [], [], []
     jstate = jtrain_epochs(
         jax_state(variables), JCFG, JTCFG,
         lambda i: jmake_trajectory(0, 5, scene_root, img_size_wh=IMG_WH,
@@ -484,23 +503,36 @@ def test_train_epochs_matches_jax(variables, jax_step, scene_root):
         train_step=recording(jax_step, jlosses), max_steps=steps,
         verbose=False)
     state = train_epochs(
-        port_state(variables), CFG, TCFG,
-        lambda i: make_trajectory(0, 5, scene_root, img_size_wh=IMG_WH,
-                                  d_candi=CFG.d_candi), 2, 2,
+        port_state(variables), CFG, TCFG, make, 2, 2,
         train_step=recording(make_train_step(CFG, TCFG), losses),
         max_steps=steps, verbose=False)
-    assert len(losses) == len(jlosses) == steps == state.step
-    got, ref = [float(x) for x in losses], [float(x) for x in jlosses]
-    # step 1 runs on equal parameters: fp32 rounding
-    np.testing.assert_allclose(got[0], ref[0], rtol=1e-5)
-    # later steps run on parameters that drift apart by up to 2 lr a step
-    # (module docstring; measured 4.6 lr after 4 steps, and the losses
-    # 1.6e-5, 6.0e-4 and 2.3e-3 apart at steps 2-4)
-    np.testing.assert_allclose(got[1:], ref[1:], rtol=1e-2)
+    still = TrainConfig(lr=0.0)
+    train_epochs(port_state(variables, still), CFG, still, make, 2, 2,
+                 train_step=recording(make_train_step(CFG, still), frozen),
+                 max_steps=steps, verbose=False)
+    assert len(losses) == len(jlosses) == len(frozen) == steps == state.step
+    got, ref, base = (np.array([float(x) for x in run])
+                      for run in (losses, jlosses, frozen))
+    np.testing.assert_allclose(got[0], ref[0], rtol=1e-5)   # fp32 rounding
+    moved = np.abs(ref[1:] - base[1:])
+    assert (moved > 0.05 * np.abs(ref[1:])).all(), (ref, base)
+    assert (np.abs(got[1:] - ref[1:]) <= 0.02 * moved).all(), (got, ref, base)
+
+    init = state_dict_from_jax(variables)
     want = state_dict_from_jax(jax.tree.map(np.asarray, jstate.params))
+    parts: dict = {}
     for key, p in state.model.named_parameters():
-        np.testing.assert_allclose(p.detach().numpy(), want[key].numpy(),
-                                   rtol=0, atol=2 * LR * steps, err_msg=key)
+        ours, theirs = parts.setdefault(key.split(".")[0], ([], []))
+        ours.append((p.detach() - init[key]).flatten())
+        theirs.append((want[key] - init[key]).flatten())
+    median_bound = {"feature_extractor": 0.25, "kv_net": 0.1, "r_net": 0.01}
+    for part, (ours, theirs) in parts.items():
+        ours, theirs = torch.cat(ours), torch.cat(theirs)
+        big = theirs.abs() > 0.5 * LR
+        agree = float((ours[big].sign() == theirs[big].sign()).float().mean())
+        median = float((ours - theirs).abs().median()) / LR
+        assert big.float().mean() > 0.8 and agree >= 0.99, (part, agree)
+        assert median <= median_bound[part], (part, median)
 
 
 # ------------------------------------------------------ checkpoints, CLI
