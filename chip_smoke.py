@@ -114,20 +114,37 @@ Phases, each printing its own lines:
    carry on the kernel against one with it on the plain ops (the loss
    bit for bit, the carry within the resample tolerance), one step's
    gradients on the card against the CPU at 96x64 D=8, two identical
-   4-step runs compared (without and with
-   ``torch.use_deterministic_algorithms``), ms per step, host ms and peak
-   memory for 1 and 2 lanes in fp32 and bf16, host syncs per step, and
-   ``cli.train_kvnet`` for 3 steps on phase 14's scene followed by
-   ``cli.test_kvnet --model_path`` on the checkpoint it wrote;
+   4-step runs equal bit for bit in every parameter, loss and carry (the
+   guard of ROADMAP C2), the bisection that found C2 (each probe run
+   twice on fixed inputs: a whole step before the repair, with cuDNN
+   disabled and in a fresh process with CUBLAS_WORKSPACE_CONFIG set; each
+   module's backward; BatchNorm with and without cuDNN; the two repaired
+   backwards), the fp32 step's ms with and without the repair at 1 and 2
+   lanes in turns, ms per step, host ms and peak memory for 1 and 2
+   lanes in fp32 and bf16, host syncs per step, and ``cli.train_kvnet``
+   for 3 steps on phase 14's scene followed by ``cli.test_kvnet
+   --model_path`` on the checkpoint it wrote;
 20. KITTI at no-crop: a fabricated 30-frame drive at 1242x375 through
    ``cli.test_kvnet --dataset kitti --crop_w 768`` at 768x256 (the sweep
    at 64x192 and the resample at W=192 against their twins, launches,
    the contract, ms per frame, the loop against the rollout), and 2
-   train steps on its labelled windows.
+   train steps on its labelled windows;
+21. the pose-free LBA pipeline at the operating point (20 iterations x 3
+   scales): the resample kernel at (64, 256, 384), as ``make_lba_maps``
+   calls it, bit for bit against its twin; the LBA program (V=4) on a
+   smooth recovery problem on the card against the CPU (and the error
+   shrinking), the CLI's program twice bit for bit, its ms and kernel
+   launches per frame; ``cli.test_kvnet_lba`` on a 24-frame capture
+   (``write_scannet_scene`` frames, a ``.json`` intrinsics file, a DSO
+   ``result.txt`` from its poses at a monocular scale) through the host
+   and the device pose-graph arms: the contract and ``poses.npz``, one
+   sweep, one prediction and one image-resolution resample launch per
+   frame, ``--timing``'s stages, the device arm against the host arm at
+   the chaos floor, and the host syncs per steady device-arm frame.
 
 Then one ``{"kernels": [...]}`` line (the conv kernel's launches: phase
 10's and phase 17's fast path; the sweep's and the resample's add
-phases 19-20) and, last, the ``{"ok": true, ...}`` line. Any failed check exits non-zero before those two lines. A kernel's
+phases 19-21) and, last, the ``{"ok": true, ...}`` line. Any failed check exits non-zero before those two lines. A kernel's
 ``ms`` in that line is its ``device_ms``. Every
 kernel's ``bound_ms`` is computed here from the shapes it was timed at:
 the larger of its bytes (each input read once, each output written once)
@@ -156,13 +173,15 @@ import numpy as np
 import torch
 
 from neuralrgbd_tpu_torch.cli import evaluate as cli_evaluate
+from neuralrgbd_tpu_torch.cli import test_kvnet_lba as cli_lba
 from neuralrgbd_tpu_torch.cli import test_kvnet as cli_test_kvnet
 from neuralrgbd_tpu_torch.cli import train_kvnet as cli_train_kvnet
 from neuralrgbd_tpu_torch.config import ModelConfig, TrainConfig
 from neuralrgbd_tpu_torch.data import kitti
 from neuralrgbd_tpu_torch.data.scannet import make_trajectory
 from neuralrgbd_tpu_torch.data.synthetic import (synthetic_batch,
-                                                 write_plane_scene)
+                                                 write_plane_scene,
+                                                 write_scannet_scene)
 from neuralrgbd_tpu_torch.data.trajectory import window_batch
 from neuralrgbd_tpu_torch.infer import loop as loop_mod
 from neuralrgbd_tpu_torch.infer import rollout as rollout_mod
@@ -183,10 +202,16 @@ from neuralrgbd_tpu_torch.ops.cuda.conv3d_dma import conv3d_dma
 from neuralrgbd_tpu_torch.ops.cuda.conv3d_pair import (_layer, knet_fast_apply,
                                                        packed_weights)
 from neuralrgbd_tpu_torch.ops.cuda.sweep import sweep_cost_volume_l2
+from neuralrgbd_tpu_torch.ops import sampling
 from neuralrgbd_tpu_torch.ops.dpv import _set_vol_border, uniform_dpv
+from neuralrgbd_tpu_torch.ops.rotations import rotation_to_quat
 from neuralrgbd_tpu_torch.ops.sampling import _pixel_to_normalized
-from neuralrgbd_tpu_torch.ops.sweep import _sweep_pixel_coords
+from neuralrgbd_tpu_torch.ops.sweep import (_sweep_pixel_coords,
+                                            backward_warp_by_depth)
+from neuralrgbd_tpu_torch.pose.lba import make_lba_program
+from neuralrgbd_tpu_torch.train import step as train_step_mod
 from neuralrgbd_tpu_torch.train.loop import upload_batch
+from neuralrgbd_tpu_torch.train.loss import nll_dpv_loss
 from neuralrgbd_tpu_torch.train.step import (create_train_state,
                                              make_train_step)
 from neuralrgbd_tpu_torch.utils.checkpoint import restore_params_partial
@@ -265,6 +290,10 @@ KITTI_CFG = dataclasses.replace(CFG, d_min=1.0, d_max=60.0)
 KITTI_WH = (768, 256)
 KITTI_FRAMES = 30         # 20 after the first and last 5; 15 windows
 T_KITTI = KITTI_FRAMES - 10 - 2 * CFG.t_win_r - 1
+# Phase 21: the LBA CLI on a 24-frame capture (19 exported frames), DSO's
+# translations at a monocular scale of 7, the reference's 20 iterations
+LBA_FRAMES, LBA_DSO_SCALE, LBA_ITERS = 24, 7.0, 20
+SYNC_FRAMES = 6           # steady frames between the two sync-count runs
 
 failures: list[str] = []
 
@@ -1750,11 +1779,12 @@ def grads_vs_cpu(device) -> None:
 
 
 def nondeterminism(device, weights) -> None:
-    """Two runs of the same 4 steps (2 lanes, the carry valid from step 2)
-    from the same weights: how far apart they end (ROADMAP C2); the error
-    ``torch.use_deterministic_algorithms(True)`` raises, if any, in one
-    step and in the two backwards suspected of atomics; and two more runs
-    with that mode on around each run (its cost, host clock)."""
+    """ROADMAP C2, repaired: two runs of the same 4 steps (2 lanes, the
+    carry valid from step 2) from the same weights end equal bit for bit
+    in every parameter, loss and carry (the check). Then the bisection
+    that found the cause, each probe run twice on fixed inputs and
+    compared with ``torch.equal``, and the step's ms with and without the
+    repair (``ops.sampling.deterministic_backward``)."""
     batches = [train_batch(CFG, device, 2, SEED + 10 + t) for t in range(4)]
 
     def run():
@@ -1762,73 +1792,214 @@ def nondeterminism(device, weights) -> None:
         step = make_train_step(CFG, TRAIN)
         carry, valid, losses = bv0_on(device).expand(2, -1, -1, -1), \
             [False, False], []
-        torch.cuda.synchronize()
-        t = time.perf_counter()
         for b in batches:
             out = step(state, b, carry, valid)
             carry, valid = out.bv_predict, [True, True]
             losses.append(out.loss)
         torch.cuda.synchronize()
-        ms = 1e3 * (time.perf_counter() - t) / len(batches)
-        return state.model.state_dict(), torch.stack(losses).cpu(), carry, ms
+        return state.model.state_dict(), torch.stack(losses).cpu(), carry
 
-    def compare(name, a, b):
-        (pa, la, ca, ma), (pb, lb, cb, mb) = a, b
-        dp = max(float((pa[k] - pb[k]).abs().max()) for k in pa)
-        n_diff = sum(not torch.equal(pa[k], pb[k]) for k in pa)
-        check(all(bool(torch.isfinite(x).all()) for x in (la, lb, ca, cb)),
-              f"two identical 4-step runs ({name}) are finite")
-        print(f"  {CARD[0]}: two identical runs of 4 train steps, {name}: "
-              f"{n_diff}/{len(pa)} parameter tensors differ, max|diff| "
-              f"{dp:.3e} (lr {TRAIN.lr}); losses {la.tolist()} vs "
-              f"{lb.tolist()}, max|diff| {float((la - lb).abs().max()):.3e};"
-              f" final carry max|diff| {max_err(ca, cb):.3e}; {ma:.1f} / "
-              f"{mb:.1f} ms per step (host clock)", flush=True)
-
-    compare("the step as it is (C2)", run(), run())
-    print("  first op without a deterministic implementation under "
-          "torch.use_deterministic_algorithms(True):", flush=True)
-    x = torch.randn(1, 8, 64, 96, device=device, requires_grad=True)
-    g = torch.rand(1, 1, 500, 2, device=device) * 2 - 1
-    cases = {
-        "one train step": lambda: make_train_step(CFG, TRAIN)(
-            train_state(CFG, device, weights), batches[1],
-            bv0_on(device).expand(2, -1, -1, -1), [False, False]),
-        "F.grid_sample backward (the sweep's warp)": lambda:
-            torch.nn.functional.grid_sample(
-                x, g, align_corners=True).sum().backward(),
-        "bilinear F.interpolate backward (upsample_bilinear_ac)": lambda:
-            layers_mod.upsample_bilinear_ac(x, (128, 192)).sum().backward(),
-    }
-    for name, fn in cases.items():
-        print(f"    {name}: {first_nondeterministic(fn)}", flush=True)
-    runs = []
-    for _ in range(2):
-        torch.use_deterministic_algorithms(True)
-        try:
-            runs.append(run())
-        except RuntimeError as e:
-            print(f"  the step under torch.use_deterministic_algorithms(True) "
-                  f"raised: {str(e).strip().splitlines()[0][:160]}",
-                  flush=True)
-            return
-        finally:
-            torch.use_deterministic_algorithms(False)
-    compare("torch.use_deterministic_algorithms(True) around each", *runs)
+    (pa, la, ca), (pb, lb, cb) = run(), run()
+    n_diff = sum(not torch.equal(pa[k], pb[k]) for k in pa)
+    dp = max(float((pa[k] - pb[k]).abs().max()) for k in pa)
+    check(n_diff == 0 and torch.equal(la, lb) and torch.equal(ca, cb)
+          and bool(torch.isfinite(la).all()),
+          f"{CARD[0]}: two identical runs of 4 train steps (C2): "
+          f"{n_diff}/{len(pa)} parameter tensors differ (max|diff| "
+          f"{dp:.3e}), losses equal {torch.equal(la, lb)}, final carry "
+          f"equal {torch.equal(ca, cb)}")
+    c2_probes(device, weights, batches[1])
+    time_repair(device, weights)
 
 
-def first_nondeterministic(fn) -> str:
-    """The error ``torch.use_deterministic_algorithms(True)`` raises in
-    ``fn``, first line, or 'none'."""
-    torch.use_deterministic_algorithms(True)
+@contextlib.contextmanager
+def atomic_backward():
+    """The train step as it was before the C2 repair: the card's own
+    atomic-add backwards of ``F.grid_sample`` and ``F.interpolate``."""
+    saved = train_step_mod.deterministic_backward
+    train_step_mod.deterministic_backward = contextlib.nullcontext
     try:
-        fn()
-        torch.cuda.synchronize()
-        return "none"
-    except RuntimeError as e:
-        return str(e).strip().splitlines()[0][:160]
+        yield
     finally:
-        torch.use_deterministic_algorithms(False)
+        train_step_mod.deterministic_backward = saved
+
+
+def twice_equal(fn) -> str:
+    """Run ``fn`` (returning {name: tensor}) twice; how many differ."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    n = sum(not torch.equal(a[k], b[k]) for k in a)
+    dm = max(float((a[k] - b[k]).abs().max()) for k in a)
+    return f"{n}/{len(a)} tensors differ (max|diff| {dm:.3e})"
+
+
+def step_grads(device, weights, batch, cudnn: bool = True) -> dict:
+    """The gradients of one 2-lane step (valid carry) from ``weights``."""
+    state = train_state(CFG, device, weights)
+    carry = random_carry(2, CFG.ndepth, IMG_HW[0] // 4, IMG_HW[1] // 4,
+                         device)
+    with torch.backends.cudnn.flags(enabled=cudnn):
+        make_train_step(CFG, TRAIN)(state, batch, carry, [True, True])
+    return {k: p.grad.clone() for k, p in state.model.named_parameters()}
+
+
+def c2_probes(device, weights, batch) -> None:
+    """The bisection of C2, each probe twice on fixed inputs: a whole step
+    without the repair (as it was, with cuDNN disabled, and with
+    CUBLAS_WORKSPACE_CONFIG set before a fresh process starts), then each
+    module's backward alone, and the two repaired backwards."""
+    print("  C2 bisection, each probe run twice on fixed inputs:", flush=True)
+    with atomic_backward():
+        print(f"    one 2-lane step's gradients, before the repair: "
+              f"{twice_equal(lambda: step_grads(device, weights, batch))}; "
+              f"cuDNN disabled for the whole step: "
+              f"{twice_equal(lambda: step_grads(device, weights, batch, False))}",
+              flush=True)
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    child = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--c2-cublas-child"], env=env, timeout=300,
+                           capture_output=True, text=True)
+    print(f"    CUBLAS_WORKSPACE_CONFIG=:4096:8 in a fresh process, before "
+          f"the repair: {child.stdout.strip() or child.stderr[-300:]}",
+          flush=True)
+    model = train_state(CFG, device, weights).model
+    g = torch.Generator().manual_seed(SEED)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(device)
+
+    def grads(module, loss_fn, fixed: bool = False):
+        def fn():
+            module.zero_grad(set_to_none=False)
+            with step_mod.step_numerics(False), (
+                    sampling.deterministic_backward() if fixed
+                    else contextlib.nullcontext()):
+                loss_fn().backward()
+            return {k: p.grad.clone() for k, p in module.named_parameters()}
+        return fn
+
+    def input_grad(make, x0, fixed: bool = False):
+        def fn():
+            x = x0.clone().requires_grad_(True)
+            with (sampling.deterministic_backward() if fixed
+                  else contextlib.nullcontext()):
+                make(x).backward()
+            return {"input": x.grad}
+        return fn
+
+    fe = model.feature_extractor["feature_extraction"]
+    frames, w1, wf = rnd(5, 3, *IMG_HW), rnd(5, 32, IMG_HW[0] // 2,
+                                              IMG_HW[1] // 2), \
+        rnd(5, CFG.feature_dim, IMG_HW[0] // 4, IMG_HW[1] // 4)
+
+    def fe_loss():
+        layer1, feat = fe(frames)
+        return (layer1 * w1).sum() + (feat * wf).sum()
+
+    src = rnd(CFG.n_views, 64, 96, CFG.feature_dim + 3)
+    coords = sweep_inputs(device, translation_poses(device))[2]
+    wg = rnd(CFG.n_views, CFG.ndepth, 64 * 96, CFG.feature_dim + 3)
+    branch, wb = rnd(5, 32, 8, 12), rnd(5, 32, 64, 96)
+    kv_in, wk = rnd(1, CFG.kvnet_in_channels, CFG.ndepth, 64, 96), \
+        rnd(1, CFG.ndepth, 64, 96)
+    rn_in = (torch.softmax(rnd(1, CFG.ndepth, 64, 96), 1),
+             rnd(1, CFG.feature_dim, 64, 96), rnd(1, 32, 128, 192),
+             rnd(1, 3, *IMG_HW))
+    wr = rnd(1, CFG.ndepth, *IMG_HW)
+    labels = torch.randint(0, CFG.ndepth, IMG_HW, generator=g).to(device)
+    bn_x, bn_w = rnd(5, 128, 64, 96), rnd(5, 128, 64, 96)
+    probes = {
+        "feature extractor": grads(fe, fe_loss),
+        "the sweep's F.grid_sample (V=4, D=64, 64x96, C=67)": input_grad(
+            lambda x: (sampling.grid_sample_2d(x, coords) * wg).sum(), src),
+        "bilinear F.interpolate (8x12 -> 64x96)": input_grad(
+            lambda x: (layers_mod.upsample_bilinear_ac(x, (64, 96))
+                       * wb).sum(), branch),
+        "K-Net": grads(model.kv_net, lambda: (model.kv_net(kv_in)
+                                              * wk).sum()),
+        "R-Net": grads(model.r_net, lambda: (model.r_net(*rn_in)
+                                             * wr).sum()),
+        "nll_dpv_loss": input_grad(lambda x: nll_dpv_loss(
+            torch.log_softmax(x, 0), labels), rnd(CFG.ndepth, *IMG_HW)),
+    }
+    for on in (True, False):
+        bn = torch.nn.BatchNorm2d(128, track_running_stats=False,
+                                  device=device)
+
+        def bn_run(bn=bn, on=on):
+            with torch.backends.cudnn.flags(enabled=on):
+                return grads(bn, lambda: (bn(bn_x) * bn_w).sum())()
+        probes[f"BatchNorm2d (5, 128, 64, 96), cuDNN "
+               f"{'on' if on else 'off'}"] = bn_run
+    probes["the sweep's F.grid_sample, fixed-order backward"] = input_grad(
+        lambda x: (sampling.grid_sample_2d(x, coords) * wg).sum(), src, True)
+    probes["bilinear F.interpolate, fixed-order backward"] = input_grad(
+        lambda x: (layers_mod.upsample_bilinear_ac(x, (64, 96))
+                   * wb).sum(), branch, True)
+    probes["feature extractor, fixed-order backward"] = grads(fe, fe_loss,
+                                                              True)
+    for name, fn in probes.items():
+        print(f"    {name}: {twice_equal(fn)}", flush=True)
+
+
+def c2_cublas_child() -> None:
+    """The ``--c2-cublas-child`` process: one 2-lane step's gradients twice
+    without the repair, in a process whose CUBLAS_WORKSPACE_CONFIG was set
+    before it started."""
+    device = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    weights = train_state(CFG, device).model.state_dict()
+    batch = train_batch(CFG, device, 2, SEED + 11)
+    with atomic_backward():
+        print(twice_equal(lambda: step_grads(device, weights, batch)))
+
+
+def time_repair(device, weights) -> None:
+    """ms per fp32 train step with and without the C2 repair, 1 and 2
+    lanes, in turns (without, with, with, without)."""
+    ms = {}
+    for n in (1, 2):
+        for fixed in (False, True, True, False):
+            with (contextlib.nullcontext() if fixed else atomic_backward()):
+                ms.setdefault((n, fixed), []).append(
+                    train_step_ms(device, weights, CFG, n)[0])
+    for n in (1, 2):
+        before, after = ms[(n, False)], ms[(n, True)]
+        print(f"  {CARD[0]}: fp32 train step, {n} lane(s), ms per step "
+              f"(CUDA events over 5 steps), before the C2 repair "
+              f"{' / '.join(f'{x:.2f}' for x in before)}, with it "
+              f"{' / '.join(f'{x:.2f}' for x in after)} "
+              f"({100 * (statistics.mean(after) / statistics.mean(before) - 1):+.1f}%)",
+              flush=True)
+
+
+def train_step_ms(device, weights, cfg, n: int):
+    """(ms per step over 5 steps after 2 of warm-up, CUDA events; host ms
+    to issue one (median); peak GiB; the last output; the step, state,
+    batches and carry for more calls)."""
+    state = train_state(cfg, device, weights)
+    step = make_train_step(cfg, TRAIN)
+    batches = [train_batch(cfg, device, n, SEED + 20 + t) for t in range(7)]
+    carry = bv0_on(device).expand(n, -1, -1, -1).contiguous()
+    for b in batches[:2]:
+        carry = step(state, b, carry, [True] * n).bv_predict
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    host = []
+    start.record()
+    for b in batches[2:]:
+        t = time.perf_counter()
+        out = step(state, b, carry, [True] * n)
+        host.append(1e3 * (time.perf_counter() - t))
+        carry = out.bv_predict
+    end.record()
+    torch.cuda.synchronize()
+    return (start.elapsed_time(end) / len(batches[2:]),
+            statistics.median(host),
+            torch.cuda.max_memory_allocated() / 2 ** 30, out,
+            (step, state, batches, carry))
 
 
 def time_train_steps(device, weights) -> None:
@@ -1839,29 +2010,10 @@ def time_train_steps(device, weights) -> None:
     for name, cfg, n in (("fp32, 1 lane", CFG, 1), ("fp32, 2 lanes", CFG, 2),
                          ("bf16, 1 lane", BF16, 1),
                          ("bf16, 2 lanes", BF16, 2)):
-        state = train_state(cfg, device, weights)
-        step = make_train_step(cfg, TRAIN)
-        batches = [train_batch(cfg, device, n, SEED + 20 + t)
-                   for t in range(7)]
-        carry = bv0_on(device).expand(n, -1, -1, -1).contiguous()
-        for b in batches[:2]:
-            carry = step(state, b, carry, [True] * n).bv_predict
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        host = []
-        start.record()
-        for b in batches[2:]:
-            t = time.perf_counter()
-            out = step(state, b, carry, [True] * n)
-            host.append(1e3 * (time.perf_counter() - t))
-            carry = out.bv_predict
-        end.record()
-        torch.cuda.synchronize()
-        ms = start.elapsed_time(end) / len(batches[2:])
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms, host, peak, out, (step, state, batches, carry) = train_step_ms(
+            device, weights, cfg, n)
         print(f"  {CARD[0]}: train step, {name}: {ms:.2f} ms per step "
-              f"(CUDA events over 5 steps), host {statistics.median(host):.2f}"
+              f"(CUDA events over 5 steps), host {host:.2f}"
               f" ms to issue one, peak device memory {peak:.2f} GiB, loss "
               f"{float(out.loss):.4f}", flush=True)
         check(bool(torch.isfinite(out.loss)), f"train step {name}: finite loss")
@@ -2066,6 +2218,231 @@ def phase_kitti(device, tmp: str, errs: dict) -> dict:
     return {k: launches[k] + train_launches[k] for k in launches}
 
 
+def write_capture(root: str) -> dict:
+    """A single-folder capture: ``write_scannet_scene``'s frames at
+    640x480, its intrinsics as a ``.json`` and a DSO ``result.txt`` from
+    its cam-to-world poses at a monocular scale (their translations times
+    LBA_DSO_SCALE) with a visual-odometry track's error (seeded noise of
+    1e-3 on each translation and 1e-4 on each quaternion component), so no
+    pose is exactly the identity ('DSO did not return') and no relative
+    translation has an exact zero. On exact zeros see PERF.md, PR 9: a
+    pixel whose depth regresses to exactly 0 then divides 0 by 0 in the
+    warp, in JAX as here."""
+    scene = write_scannet_scene(root, n_frames=LBA_FRAMES)
+    intrin = os.path.join(root, "cam_info.json")
+    with open(intrin, "w") as f:
+        json.dump({"IntM": [[585.0, 0, 323.7], [0, 585.0, 237.9], [0, 0, 1]],
+                   "img_size": [640, 480]}, f)
+    rng = np.random.RandomState(SEED)
+    lines = []
+    for i in range(LBA_FRAMES):
+        c2w = np.loadtxt(os.path.join(scene, f"frame-{5 * i:06d}.pose.txt"))
+        q = rotation_to_quat(torch.from_numpy(c2w[:3, :3])).numpy() \
+            + rng.normal(0.0, 1e-4, 4)
+        t = c2w[:3, 3] * LBA_DSO_SCALE + rng.normal(0.0, 1e-3, 3)
+        lines.append(f"{i} " + " ".join(f"{x:.9g}" for x in (*t, *q)))
+    result = os.path.join(root, "result.txt")
+    with open(result, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return {"img_glob": os.path.join(scene, "*.color.jpg"),
+            "intrin_path": intrin, "dso_res_path": result}
+
+
+def lba_problem(V: int = 4) -> tuple:
+    """tests/test_pose.py's smooth problem at the operating point, V views,
+    on the CPU: ref := the source warped at a constant 2 m by t_true; each
+    view's init t_true perturbed by up to 3 cm. Returns (the intrinsics of
+    the 3 scales, the program's arguments, t_true)."""
+    H, W = IMG_HW
+    Ks = [np.array([[240.0 / s, 0, W / s / 2], [0, 240.0 / s, H / s / 2],
+                    [0, 0, 1]], np.float32) for s in (4, 2, 1)]
+    rng = np.random.RandomState(SEED)
+    ys, xs = np.mgrid[0:H, 0:W].astype(np.float32)
+    src = np.stack([np.sin(xs / 28.0 + c) + np.cos(ys / 20.0 - c)
+                    for c in range(3)], -1) + 0.1 * rng.rand(H, W, 3)
+    src = torch.from_numpy(src.astype(np.float32))
+    dmap = torch.full((H, W), 2.0)
+    t_true = torch.tensor([0.06, -0.03, 0.02])
+    ref = backward_warp_by_depth(src[None], dmap, torch.eye(3)[None],
+                                 t_true[None], camera_from_K(Ks[-1]))[0]
+    inits = torch.eye(4).repeat(V, 1, 1)
+    inits[:, :3, 3] = t_true + torch.from_numpy(
+        rng.uniform(-0.03, 0.03, (V, 3)).astype(np.float32))
+    return Ks, (ref, src.expand(V, H, W, 3).contiguous(), dmap,
+                torch.ones_like(dmap), inits), t_true
+
+
+def phase_lba(device, loop_info: dict, tmp: str, errs: dict) -> dict:
+    H, W = IMG_HW
+    print(f"phase 21: the pose-free LBA pipeline at {W}x{H}, D={CFG.ndepth}, "
+          f"feature_dim {CFG.feature_dim}, t_win {CFG.t_win_r}, "
+          f"{LBA_ITERS} LBA iterations x 3 scales", flush=True)
+    # B3: the image-resolution resample of make_lba_maps against its twin
+    lv = random_carry(1, CFG.ndepth, H, W, device)[0]
+    pose = torch.from_numpy(_pose_next("roll 3 deg")).to(device)
+    cam = camera_from_K(_K(H, W), device)
+    d = torch.as_tensor(CFG.d_candi, device=device)
+    pad = math.log(1.0 / CFG.ndepth)
+    rel = kresample.adjugate_inverse(pose)
+    got = kresample.resample_dpv_cuda(lv, rel, cam, d, pad)
+    want = kresample.resample_plain(lv[None], rel[None], cam.K[None], d,
+                                    False, pad)[0]
+    torch.cuda.synchronize()
+    e = max_err(got, want)
+    errs["resample"].append(e)
+    check(torch.equal(got, want), f"B3 resample_dpv_cuda at ({CFG.ndepth}, "
+          f"{H}, {W}) vs its twin: bit for bit {torch.equal(got, want)} "
+          f"(max|err| {e:.3e})")
+
+    # the LBA program: card vs CPU on a smooth recovery problem (t only,
+    # as tests/test_pose.py recovers it), and the CLI's program twice
+    Ks, cpu_args, t_true = lba_problem()
+    args = [a.to(device) for a in cpu_args]
+    recover = {dev: make_lba_program([camera_from_K(K, dev) for K in Ks],
+                                     max_iter=LBA_ITERS, opt_vars=(0, 1))
+               for dev in ("cpu", device)}
+    out = recover[device](*args).cpu()
+    cpu = recover["cpu"](*cpu_args)
+    err0 = (cpu_args[-1][:, :3, 3] - t_true).norm(dim=1)
+    err1 = (out[:, :3, 3] - t_true).norm(dim=1)
+    check(within(out, cpu, 1e-4, 2e-4) and bool((err1 < 0.4 * err0).all()),
+          f"the LBA program (V=4, t only) on the card vs the CPU: max|diff| "
+          f"{max_err(out, cpu):.3e} (rtol 1e-4, atol 2e-4, JAX's bound "
+          f"between its builds); |t - t_true| from "
+          f"{[round(float(x), 4) for x in err0]} to "
+          f"{[round(float(x), 4) for x in err1]} m")
+    run = make_lba_program([camera_from_K(K, device) for K in Ks],
+                           max_iter=LBA_ITERS)
+    first, again = run(*args), run(*args)
+    check(torch.equal(first, again), "the CLI's LBA program (R and t), two "
+          f"runs on the card: equal bit for bit {torch.equal(first, again)}")
+    lba_ms = host_ms(lambda: run(*args), reps=5)
+    n_launch = kernel_launches(lambda: run(*args))
+    print(f"  {CARD[0]}: the LBA program (V=4, {LBA_ITERS} x 3 iterations) "
+          f"{lba_ms:.2f} ms a frame (host clock to a sync), {n_launch} "
+          f"kernel launches a frame ({n_launch / (3 * LBA_ITERS):.1f} an "
+          f"iteration)", flush=True)
+
+    # the CLI on a fabricated capture, through both pose-graph arms. The
+    # warp divides by z with no epsilon, as JAX and the reference do: a
+    # pixel whose z rounds to exactly 0 makes that view's pose NaN (PERF.md,
+    # PR 9). The host arm's gate then skips the windows that hold it (as
+    # JAX's), the device arm goes on (as JAX's), and both are counted.
+    cap = write_capture(os.path.join(tmp, "capture"))
+    n_frames = LBA_FRAMES - 2 * CFG.t_win_r - 1
+    outs, launches_all = {}, {k: 0 for k in KERNELS}
+    for arm in ("host", "device"):
+        calls = {"B3": 0}
+        real = kresample.resample_dpv_cuda
+
+        def counted(*a, **k):
+            calls["B3"] += 1
+            return real(*a, **k)
+
+        kresample.resample_dpv_cuda = counted
+        reset_launches()
+        try:
+            n, text = quiet(cli_lba.main, lba_args(cap, loop_info, tmp, arm))
+        finally:
+            kresample.resample_dpv_cuda = real
+        launches = read_launches()
+        for k in launches:
+            launches_all[k] += launches[k]
+        out_dir = os.path.join(tmp, f"lba_{arm}", "lba")
+        skipped = text.count("invalid DSO pose, skipped")
+        timing = [x for x in text.splitlines() if x.startswith("TIMING")]
+        poses = np.load(os.path.join(out_dir, "poses.npz"))
+        finite = np.isfinite(poses["extMs"]).all(axis=(1, 2))
+        files = set(os.listdir(out_dir))
+        want = {f"{p}_{i:05d}.{ext}" for i in range(n)
+                for p, ext in (("img", "png"), ("d", "pgm"), ("conf", "pgm"))}
+        rows = open(os.path.join(out_dir, "scene_path_info.txt")).read() \
+            .splitlines()
+        d_max = max(int(read_pgm(os.path.join(out_dir, f"d_{i:05d}.pgm"))
+                        .max()) for i in range(n))
+        gated = [int(x.split()[1][:-1]) for x in text.splitlines()
+                 if x.endswith("invalid DSO pose, skipped")]
+        outs[arm] = (min(gated, default=LBA_FRAMES), out_dir, rows[1:])
+        check(n == n_frames - skipped and (arm == "host" or skipped == 0)
+              and files == want | {"scene_path_info.txt", "poses.npz"}
+              and len(rows) == n + 1 and poses["extMs"].shape ==
+              (LBA_FRAMES, 4, 4) and (poses["valid"] == finite).all()
+              and d_max <= 1000 * CFG.d_max and len(timing) == 1,
+              f"cli.test_kvnet_lba --pose_graph {arm}: {n} frames "
+              f"({skipped} windows skipped by the pose gate), {len(files)} "
+              f"files, {len(rows) - 1} scene_path_info rows, poses.npz "
+              f"{poses['extMs'].shape}: {int(finite.sum())} finite, all "
+              f"valid ones; max depth {d_max}")
+        b2 = launches["resample"] - calls["B3"]
+        check(launches["sweep_fused"] == n and b2 == n and calls["B3"] == n,
+              f"{arm} arm launches: B1 (sweep) {launches['sweep_fused']}, B2 "
+              f"(predict_next) {b2}, B3 (resample_dpv_cuda) {calls['B3']} "
+              f"for {n} frames (1 each a frame)")
+        print(f"  {CARD[0]}: {arm} arm {timing[0] if timing else 'no TIMING'}",
+              flush=True)
+    # the arms frame by frame while both chains are finite: up to the host
+    # arm's first gated window, and up to the device arm's first frame
+    # with a NaN depth (its pgm reads 0 there; a regressed depth is at
+    # least d_min otherwise)
+    (gate, host_dir, host_rows), (_, dev_dir, dev_rows) = outs["host"], \
+        outs["device"]
+    dev_index = {r.split("  ")[1]: int(r.split("  ")[0]) for r in dev_rows}
+    worst, first, shared = 1.0, 0, 0
+    for row in host_rows[:gate - CFG.t_win_r]:
+        i, path = int(row.split("  ")[0]), row.split("  ")[1]
+        maps = {(arm, p): read_pgm(os.path.join(
+            out, f"{p}_{k:05d}.pgm")).astype(np.int64)
+            for arm, out, k in (("host", host_dir, i),
+                                ("device", dev_dir, dev_index[path]))
+            for p in ("d", "conf")}
+        if not maps[("device", "d")].min():
+            break
+        shared += 1
+        for p in ("d", "conf"):
+            diff = np.abs(maps[("host", p)] - maps[("device", p)])
+            if i == 0:
+                first = max(first, int(diff.max()))
+            else:
+                worst = min(worst, float((diff <= 2).mean()))
+    check(shared >= 1 and first <= 1 and worst >= 0.95,
+          f"device arm vs host arm on the {shared} frames where both chains "
+          f"are finite: "
+          f"frame 0 max |diff| {first} unit(s); later frames' worst share "
+          f"within 2 units {worst:.4f} (chaos floor 0.95, "
+          f"tests/test_lba_cli.py)")
+
+    # host syncs per steady device-arm frame: two runs that differ by
+    # SYNC_FRAMES steady frames
+    counts = []
+    for last in (CFG.t_win_r + 1 + 1, CFG.t_win_r + 1 + 1 + SYNC_FRAMES):
+        sites = sync_sites(lambda: quiet(cli_lba.main, lba_args(
+            cap, loop_info, tmp, "device", f"sync{last}")
+            + ["--max_frame_idx", str(last)]))
+        counts.append(sum(sites.values()))
+    per_frame = (counts[1] - counts[0]) / SYNC_FRAMES
+    check(per_frame == 0, f"host syncs per steady device-arm frame: "
+          f"{per_frame} (runs of {counts} syncs in all, {SYNC_FRAMES} "
+          f"steady frames apart)")
+    for (where, message), k in sorted(sites.items()):
+        print(f"    {k} x {where}: {message}", flush=True)
+    return launches_all
+
+
+def lba_args(cap: dict, loop_info: dict, tmp: str, arm: str,
+             name: str = "") -> list[str]:
+    """``cli.test_kvnet_lba`` at the operating point on ``cap``."""
+    return ["--img_glob", cap["img_glob"], "--intrin_path",
+            cap["intrin_path"], "--dso_res_path", cap["dso_res_path"],
+            "--model_path", loop_info["ckpt"], "--exp_name", "lba",
+            "--res_dir", os.path.join(tmp, f"lba_{name or arm}"),
+            "--ndepth", str(CFG.ndepth), "--feature_dim",
+            str(CFG.feature_dim), "--d_min", str(CFG.d_min), "--d_max",
+            str(CFG.d_max), "--t_win", str(CFG.t_win_r), "--img_width",
+            str(IMG_HW[1]), "--img_height", str(IMG_HW[0]),
+            "--LBA_max_iter", str(LBA_ITERS), "--pose_graph", arm,
+            "--save_poses", "--timing", "--device", "cuda"]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     device = phase_device()
@@ -2093,7 +2470,8 @@ def main() -> int:
                                            loop_info, tmp)
         phase_bf16(model, device, frames, depth, loop_info)
         for path in (phase_train(device, loop_info, tmp),
-                     phase_kitti(device, tmp, errs)):
+                     phase_kitti(device, tmp, errs),
+                     phase_lba(device, loop_info, tmp, errs)):
             for name, n in path.items():
                 launches[name] += n
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of command "
@@ -2115,4 +2493,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--c2-cublas-child"]:
+        sys.exit(c2_cublas_child())
     sys.exit(main())

@@ -161,6 +161,61 @@ def _export_chunk(res_dir: str, entries, host: torch.Tensor, copied):
     return [[batch_idx, path] for batch_idx, _, path in entries]
 
 
+class ChunkExporter:
+    """Quantized maps on the device go to the files in chunks: every
+    ``chunk`` frames ONE non-blocking copy into pinned memory, and an
+    export thread waits on that copy's event and writes the chunk's files.
+    The caller's thread waits only while ``in_flight`` chunks are still
+    being written."""
+
+    def __init__(self, res_dir: str, device: torch.device, chunk: int,
+                 in_flight: int = 3):
+        self._res_dir, self._device = res_dir, device
+        self._chunk, self._in_flight = chunk, in_flight
+        self._pool = ThreadPoolExecutor(max_workers=2)
+        self._futures: list = []
+        self._entries, self._maps = [], []
+        self._rows: list = []         # scene_path_info rows of written chunks
+
+    def add(self, frame_cnt: int, raw: np.ndarray, path: str,
+            maps: torch.Tensor) -> None:
+        """Queue one frame: ``maps`` (2, H, W) ``_q16`` depth and
+        confidence on the device, ``raw`` its uint8 image."""
+        self._entries.append((frame_cnt, raw, path))
+        self._maps.append(maps)
+        if len(self._entries) >= self._chunk:
+            self.submit()
+
+    def submit(self) -> None:
+        """Send the queued frames down as one chunk."""
+        if not self._entries:
+            return
+        maps = torch.stack(self._maps, 1)               # (2, n, H, W)
+        if self._device.type == "cuda":
+            host = torch.empty(maps.shape, dtype=maps.dtype, pin_memory=True)
+            host.copy_(maps, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record()
+        else:
+            host, copied = maps, None
+        self._futures.append(self._pool.submit(
+            _export_chunk, self._res_dir, self._entries, host, copied))
+        self._entries, self._maps = [], []
+        while len(self._futures) > self._in_flight:
+            self._rows.extend(self._futures.pop(0).result())
+
+    def finish(self) -> list:
+        """Submit the rest, wait for every chunk; returns all rows."""
+        self.submit()
+        for f in self._futures:
+            self._rows.extend(f.result())
+        self._futures = []
+        return self._rows
+
+    def shutdown(self) -> None:
+        self._pool.shutdown(wait=True, cancel_futures=True)
+
+
 def run_trajectory(
     model: KVNet,
     cfg: ModelConfig,
@@ -228,28 +283,7 @@ def run_trajectory(
                 feature_cache.popitem(last=False)
         return feature_cache[idx]
 
-    exporter = ThreadPoolExecutor(max_workers=2)
-    futures: list = []
-    info_rows: list = []
-    pend_entries, pend_d, pend_c = [], [], []
-
-    def submit_pending():
-        nonlocal pend_entries, pend_d, pend_c
-        if not pend_entries:
-            return
-        maps = torch.stack([torch.stack(pend_d), torch.stack(pend_c)])
-        if device.type == "cuda":
-            host = torch.empty(maps.shape, dtype=maps.dtype, pin_memory=True)
-            host.copy_(maps, non_blocking=True)
-            copied = torch.cuda.Event()
-            copied.record()
-        else:
-            host, copied = maps, None
-        futures.append(exporter.submit(_export_chunk, res_dir, pend_entries,
-                                       host, copied))
-        pend_entries, pend_d, pend_c = [], [], []
-        while len(futures) > 3:      # bound the chunks in flight
-            info_rows.extend(futures.pop(0).result())
+    exporter = ChunkExporter(res_dir, device, chunk_t)
 
     try:
         for frame_cnt, ref_indx in enumerate(range(lo, hi)):
@@ -282,19 +316,15 @@ def run_trajectory(
             else:
                 out = infer_step(model, batch, bv_predict, bv_valid)
             bv_predict, bv_valid = out.bv_predict, [True]
-            pend_entries.append((frame_cnt, frames.raw(ref_indx),
-                                 traj.img_paths[ref_indx]))
-            pend_d.append(_q16(out.depth[0]))
-            pend_c.append(_q16(out.confidence[0]))
-            if len(pend_entries) >= chunk_t:
-                submit_pending()
+            exporter.add(frame_cnt, frames.raw(ref_indx),
+                         traj.img_paths[ref_indx],
+                         torch.stack([_q16(out.depth[0]),
+                                      _q16(out.confidence[0])]))
             if verbose:
                 print(f"Finished frame {frame_cnt + 1}/{hi - lo}", flush=True)
-        submit_pending()
-        for f in futures:
-            info_rows.extend(f.result())
+        info_rows = exporter.finish()
     finally:
-        exporter.shutdown(wait=True, cancel_futures=True)
+        exporter.shutdown()
         frames.close()
     scene_path_info = [[traj.name or os.path.dirname(traj.img_paths[0])]]
     scene_path_info += sorted(info_rows)

@@ -12,7 +12,10 @@ Internally the port is NCHW / NCDHW, the PyTorch habit. Parity notes:
   JAX layers reproduce; ``ConvTranspose2d(k=4, s=2, p=1)`` is torch's own
   (the JAX kernel is its spatial flip, see ``utils/torch_import.py``).
 - ``F.avg_pool2d(x, k)`` (VALID, floor) and ``F.leaky_relu`` (slope 0.01)
-  are the JAX ``avg_pool2d`` and ``leaky_relu`` as they are.
+  are the JAX ``avg_pool2d`` and ``leaky_relu`` as they are; the
+  channels-last ``avg_pool2d`` below is JAX's own, for the LBA's pyramid.
+- ``upsample_bilinear_ac`` sums its gradient in a fixed order inside
+  ``ops.sampling.deterministic_backward`` (the train step's).
 - The initialisers are the reference's: fan-out He normal for convs,
   BN scale 1 and bias 0, bilinear kernels for transposed convs.
 - ``compute_dtype`` (``cfg.dtype`` other than float32) is the JAX layers'
@@ -33,6 +36,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from neuralrgbd_tpu_torch.ops.sampling import fixed_order_wanted
 
 
 def _cast(module: nn.Module, name: str, dtype: torch.dtype) -> torch.Tensor:
@@ -128,8 +133,60 @@ def convbn_3d(in_planes: int, out_planes: int, kernel: int, stride: int,
         nn.BatchNorm3d(out_planes, track_running_stats=False, device=device))
 
 
+def avg_pool2d(x: torch.Tensor, window: int) -> torch.Tensor:
+    """JAX's ``avg_pool2d`` on channels-last (..., H, W, C): torch
+    AvgPool2d(window, stride=window), VALID windows (the trailing partial
+    window dropped), as crop + reshape + mean. Stride == window is all the
+    reference uses."""
+    H, W, C = x.shape[-3:]
+    oh, ow = H // window, W // window
+    y = x[..., :oh * window, :ow * window, :]
+    y = y.reshape(*x.shape[:-3], oh, window, ow, window, C)
+    return y.mean(dim=(-4, -2))
+
+
+def _interp_weights_ac(n_in: int, n_out: int, device) -> torch.Tensor:
+    """(n_out, n_in) weights of bilinear ``F.interpolate`` along one axis
+    (align_corners=True), each as the card's kernel computes it: the
+    source position ``o * scale`` with ``scale = (n_in-1)/(n_out-1)`` in
+    fp32, weights ``1 - frac`` and ``frac``. Built on ``device`` with no
+    copy from the host."""
+    scale = (float(np.float32(n_in - 1) / np.float32(n_out - 1))
+             if n_out > 1 else 0.0)
+    src = torch.arange(n_out, dtype=torch.float32, device=device) * scale
+    i0 = src.long()
+    w1 = src - i0
+    i1 = torch.where(i0 < n_in - 1, i0 + 1, i0)
+    cols = torch.arange(n_in, device=device)
+    return ((cols == i0[:, None]) * (1.0 - w1)[:, None]
+            + (cols == i1[:, None]) * w1[:, None])
+
+
+class UpsampleBilinearFixedOrder(torch.autograd.Function):
+    """``F.interpolate(x, size, 'bilinear', align_corners=True)`` whose
+    gradient is ``Mh^T g Mw``: two matrix products, summed in a fixed
+    order (the card's own backward adds with atomics)."""
+
+    @staticmethod
+    def forward(ctx, x, out_hw):
+        ctx.in_hw = x.shape[-2:]
+        return F.interpolate(x, size=out_hw, mode="bilinear",
+                             align_corners=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        (H, W), (Ho, Wo) = ctx.in_hw, g.shape[-2:]
+        mh = _interp_weights_ac(H, Ho, g.device)
+        mw = _interp_weights_ac(W, Wo, g.device)
+        return torch.matmul(torch.matmul(mh.t(), g), mw), None
+
+
 def upsample_bilinear_ac(x: torch.Tensor, out_hw) -> torch.Tensor:
-    """Bilinear resize of (N, C, H, W) with align_corners=True."""
+    """Bilinear resize of (N, C, H, W) with align_corners=True (its
+    gradient in a fixed order inside ``ops.sampling.
+    deterministic_backward``)."""
+    if fixed_order_wanted(x):
+        return UpsampleBilinearFixedOrder.apply(x, tuple(out_hw))
     return F.interpolate(x, size=tuple(out_hw), mode="bilinear",
                          align_corners=True)
 

@@ -91,3 +91,30 @@ def sweep_cost_volume(ref_feat: torch.Tensor, src_feats: torch.Tensor,
     coords = _sweep_pixel_coords(cam, Rs, ts, d_candi, H, W)
     return sweep_cost_volume_from_coords(ref_feat, src_feats, coords, sigma,
                                          feat_dist, keep_last_channels)
+
+
+def backward_warp_by_depth(src_imgs: torch.Tensor, dmap: torch.Tensor,
+                           Rs: torch.Tensor, ts: torch.Tensor, cam: Camera,
+                           sample_method: str | None = None) -> torch.Tensor:
+    """Depth-map-based backward warp (``back_warp_th_Rt_msrc``): back-project
+    the reference depth map, reproject into each source view, sample.
+    Used by the LBA's photometric objective. Returns (V, H, W, C).
+
+    src_imgs (V, H, W, C); dmap (H, W), or (V, H, W) for one depth map per
+    view (the LBA's bi-directional term); Rs (V, 3, 3), ts (V, 3) ref->src.
+    All views in one batch. As in JAX there is no epsilon on z
+    (homography.py:515,561 divides by z directly), and the pixel mapping
+    is JAX's ``u * ((W-1)/2) / cx``. ``sample_method``: see
+    ``ops.sampling.grid_sample_2d``.
+    """
+    V, H, W, C = src_imgs.shape
+    rays = unit_rays(cam, H, W)                              # (3, HW)
+    pts = dmap.reshape(-1, 1, H * W) * rays                  # (1|V, 3, HW)
+    p = cam.K @ (Rs @ pts + ts[..., None])                   # (V, 3, HW)
+    u = p[:, 0] / p[:, 2]
+    v = p[:, 1] / p[:, 2]
+    px = u * ((W - 1) / 2.0) / cam.cx
+    py = v * ((H - 1) / 2.0) / cam.cy
+    coords = torch.stack([px, py], dim=-1)                   # (V, HW, 2)
+    return grid_sample_2d(src_imgs, coords, padding="zeros",
+                          method=sample_method).reshape(V, H, W, C)

@@ -29,10 +29,12 @@ How the port meets JAX's semantics:
   has no backward. The carry runs on the resample kernel,
   ``predict_next_cuda``, one launch for all lanes.
 - The whole step, backward and update included, runs inside
-  ``infer.step.step_numerics(False)``: fp32 convs (no TF32) and
-  deterministic cuDNN algorithms. Two runs on the card still differ in
-  the last bits, from an op that ``torch.use_deterministic_algorithms``
-  does not flag; which one is not yet known (ROADMAP Queue C, C2).
+  ``infer.step.step_numerics(False)`` (fp32 convs, no TF32, deterministic
+  cuDNN algorithms) and ``ops.sampling.deterministic_backward()``: the
+  image gradients of the sweep's ``F.grid_sample`` and of the feature
+  extractor's bilinear ``F.interpolate`` are summed in a fixed order
+  instead of by the card's atomic adds, so two runs of the same steps
+  give the same bits (ROADMAP Queue C, C2). The forwards are unchanged.
 - No host sync: the loss stays on the device.
 """
 
@@ -51,6 +53,7 @@ from neuralrgbd_tpu_torch.ops.camera import Camera
 from neuralrgbd_tpu_torch.ops.dpv import depth_regression
 from neuralrgbd_tpu_torch.ops.rotations import (apply_pose_noise,
                                                 draw_pose_noise)
+from neuralrgbd_tpu_torch.ops.sampling import deterministic_backward
 from neuralrgbd_tpu_torch.train.loss import l1_variance_loss, nll_dpv_loss
 
 BETAS = (0.9, 0.999)   # optax.adam's defaults, train_KVNet.py:264
@@ -231,7 +234,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, kernels: bool = True):
             poses = apply_pose_noise(poses, eps_r, eps_t,
                                      tcfg.pose_noise_level)
         lanes = dict(batch, poses=poses)
-        with step_numerics(False):
+        with step_numerics(False), deterministic_backward():
             state.optimizer.zero_grad(set_to_none=False)
             loss = torch.zeros((), device=dev)
             dpvs = []

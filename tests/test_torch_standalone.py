@@ -20,6 +20,10 @@ its model is built on the card unless the caller asks for the CPU.
   and batches (plain and augmented), ``data.augment``'s functions, and
   ``utils.logging``'s files (``save_args``, ``Tee``, ``MetricsWriter``);
   ``data.kitti``: ``tests/test_torch_kitti.py``;
+- the pose-free pipeline's copies: ``pose.dso`` equal to the original
+  file, and ``data.mdata`` equal to it but for the import of the port's
+  own ``data.trajectory`` (their behaviour against the originals:
+  ``tests/test_torch_lba.py``);
 - hygiene: no ``.py`` file of the port, nor ``chip_smoke.py``, imports
   ``jax``, ``flax`` or ``neuralrgbd_tpu`` (checked on the syntax tree), and
   importing every port module leaves ``jax`` and ``neuralrgbd_tpu`` out of
@@ -471,3 +475,17 @@ def test_logging_copy_equals_original(tmp_path, capsys):
         writer.scalar("data/train_error", 1.5, 1)
         writer.image("train/depth", np.ones((4, 6), np.float32), 1)
         writer.close()
+
+
+@pytest.mark.parametrize("copy,original,imports", [
+    ("neuralrgbd_tpu_torch/pose/dso.py", "neuralrgbd_tpu/pose/dso.py", ()),
+    ("neuralrgbd_tpu_torch/data/mdata.py", "neuralrgbd_tpu/data/mdata.py",
+     ("data.trajectory",))], ids=["pose.dso", "data.mdata"])
+def test_pose_free_copies_equal_originals(copy, original, imports):
+    """The copy's text is the original's, each named import of the JAX
+    package pointed at the port's module of the same name."""
+    want = (REPO / original).read_text()
+    for name in imports:
+        want = want.replace(f"from neuralrgbd_tpu.{name} ",
+                            f"from neuralrgbd_tpu_torch.{name} ")
+    assert (REPO / copy).read_text() == want
