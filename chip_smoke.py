@@ -140,11 +140,30 @@ Phases, each printing its own lines:
    and the device pose-graph arms: the contract and ``poses.npz``, one
    sweep, one prediction and one image-resolution resample launch per
    frame, ``--timing``'s stages, the device arm against the host arm at
-   the chaos floor, and the host syncs per steady device-arm frame.
+   the chaos floor, and the host syncs per steady device-arm frame;
+22. the remaining heads (DGF, ``refine_costv``, ``dnet_bayes``,
+   ``refine_dup``), each a ``KVNet`` at the operating point on seeded
+   weights: a T=8 kernel-path rollout (phase 5's checks; DGF's depth is
+   the guided filter's, bounded by 0 only; one sweep and one resample
+   launch a frame), the same again bit for bit, the plain path within
+   phase 6's 1e-2 (max and mean printed), 0 host syncs in a steady step
+   and the rollout's peak memory; DGF on the card vs the CPU over 2
+   frames (depth max and mean); ``refine_costv`` with ``fast_knet`` (the
+   conv kernel 10 x (T-1) times, within 0.05 m mean of its exact path);
+   ms per frame of every head beside the default head, in turns; one
+   R-Net pass, default and ``refine_dup``, against its fp32 bound;
+   ``cli.test_kvnet --refine_net DGF`` on phase 14's scene from a
+   reference-style ``.tar`` (launches, contract, maps equal to the DGF
+   rollout's); 3 train steps at 1 lane, fp32, with a valid carry under
+   ``refine_dup`` (on the up4 labels), ``dnet_bayes`` and
+   ``refine_costv``, twice: the loss finite and falling, the runs equal
+   bit for bit, ms per step and peak memory; ``cli.train_kvnet
+   --refine_dup`` for 2 steps; and the six legacy refine heads on the
+   card vs the CPU (same weights, fp32) at the DPV grid, with their ms.
 
 Then one ``{"kernels": [...]}`` line (the conv kernel's launches: phase
-10's and phase 17's fast path; the sweep's and the resample's add
-phases 19-21) and, last, the ``{"ok": true, ...}`` line. Any failed check exits non-zero before those two lines. A kernel's
+10's, phase 17's and phase 22's fast path; the sweep's and the
+resample's add phases 19-22) and, last, the ``{"ok": true, ...}`` line. Any failed check exits non-zero before those two lines. A kernel's
 ``ms`` in that line is its ``device_ms``. Every
 kernel's ``bound_ms`` is computed here from the shapes it was timed at:
 the larger of its bytes (each input read once, each output written once)
@@ -191,7 +210,9 @@ from neuralrgbd_tpu_torch.infer.rollout import make_rollout
 from neuralrgbd_tpu_torch.infer.step import (make_frame_features,
                                              make_infer_step, predict_next)
 from neuralrgbd_tpu_torch.models import layers as layers_mod
+from neuralrgbd_tpu_torch.models import refine_legacy as legacy
 from neuralrgbd_tpu_torch.models.kvnet import KVNet
+from neuralrgbd_tpu_torch.models.rnet import RNet
 from neuralrgbd_tpu_torch.ops.camera import Camera, camera_from_K
 from neuralrgbd_tpu_torch.ops.cuda import build
 from neuralrgbd_tpu_torch.ops.cuda import conv3d as kconv
@@ -234,6 +255,14 @@ KERNELS = {"sweep_fused": ksweep, "resample": kresample, "conv3d": kconv}
 TOL = {"cost": (1e-4, 1e-3), "kept": (1e-4, 5e-4), "resample": (1e-4, 5e-4)}
 # Kernel path vs plain path through 8 recurrent frames (depth in m).
 ROLLOUT_TOL = {"depth": 1e-2, "confidence": 1e-2}
+# ... except DGF's depth, held by its mean |difference| in m (its max is
+# printed): the guided filter divides by var_x + 1e-8 over 3x3 windows of
+# a learned guide, and where the guide is flat it amplifies the ~1e-4 m
+# by which the sweep kernel and F.grid_sample differ (on the CPU, JAX's own
+# float32 and float64 DGF heads lie 4.4 m apart on a smooth image,
+# tests/test_torch_heads.py). Its confidence, the low-res posterior's,
+# keeps the 1e-2 max.
+DGF_DEPTH_MEAN = 1e-3
 # Conv kernel vs plain twin: both sum exact bf16 products in fp32, in
 # another order (and cuDNN's fp32 algorithm may round its own way), so the
 # fp32 outputs differ by ~1e-5 on O(1) values; a bf16 output then differs
@@ -294,6 +323,14 @@ T_KITTI = KITTI_FRAMES - 10 - 2 * CFG.t_win_r - 1
 # translations at a monocular scale of 7, the reference's 20 iterations
 LBA_FRAMES, LBA_DSO_SCALE, LBA_ITERS = 24, 7.0, 20
 SYNC_FRAMES = 6           # steady frames between the two sync-count runs
+# Phase 22: the remaining heads (``KVNet``'s, at the operating point)
+HEADS = {"DGF": dict(refine_net="DGF"), "refine_costv": dict(refine_costv=True),
+         "dnet_bayes": dict(dnet_bayes=True), "refine_dup": dict(refine_dup=True)}
+TRAIN_HEAD_STEPS = 3
+# The legacy refine heads, card vs CPU on the same weights: fp32 sums in
+# another order (cuDNN and oneDNN) through up to 10 layers with batch-
+# statistics BatchNorm; max |difference| over the output's max |value|.
+LEGACY_TOL = 1e-4
 
 failures: list[str] = []
 
@@ -520,9 +557,19 @@ def check_rollout(model, frames, want_launches: dict, cfg=CFG, **kw):
           and bv.shape == (1, CFG.ndepth, H // 4, W // 4), "output shapes")
     check(all(bool(torch.isfinite(x).all()) for x in (depth, conf, bv)),
           "depth, confidence and prediction are finite")
-    check(bool(((depth >= CFG.d_min - 1e-4) & (depth <= CFG.d_max + 1e-4)).all()),
-          f"depth in [{CFG.d_min}, {CFG.d_max}]: "
-          f"[{float(depth.min()):.4f}, {float(depth.max()):.4f}]")
+    dgf = cfg.refine_net == "DGF"
+    if dgf:
+        # the guided filter fits depth linearly to its learned guide, so
+        # its output may leave the candidates' range: positive is the bound
+        check(bool((depth > 0).all()),
+              f"DGF depth > 0: [{float(depth.min()):.4f}, "
+              f"{float(depth.max()):.4f}] (d_candi in [{CFG.d_min}, "
+              f"{CFG.d_max}])")
+    else:
+        check(bool(((depth >= CFG.d_min - 1e-4)
+                    & (depth <= CFG.d_max + 1e-4)).all()),
+              f"depth in [{CFG.d_min}, {CFG.d_max}]: "
+              f"[{float(depth.min()):.4f}, {float(depth.max()):.4f}]")
     check(bool(((conf > 0) & (conf <= 1 + 1e-6)).all()),
           f"confidence in (0, 1]: [{float(conf.min()):.4f}, "
           f"{float(conf.max()):.4f}]")
@@ -531,7 +578,8 @@ def check_rollout(model, frames, want_launches: dict, cfg=CFG, **kw):
     step_kw = {k: v for k, v in kw.items() if k != "cache_features"}
     out = make_infer_step(cfg, **step_kw)(
         model, {k: v[-1] for k, v in frames.items()}, bv, [True])
-    for name in ("dpv", "dpv_refined"):
+    # DGF's refined field is the depth map, not a DPV
+    for name in ("dpv",) if dgf else ("dpv", "dpv_refined"):
         lv = getattr(out, name)
         s = lv.exp().sum(1)
         check(bool((lv <= 0).all()) and max_err(s, torch.ones_like(s)) < 1e-4,
@@ -583,11 +631,11 @@ def phase_plain(model, device, frames, depth, conf) -> None:
               f"card vs CPU, first 2 frames, {name}: max|err| {e:.3e}")
 
 
-def frame_ms(model, device, kernels: bool, fast_knet: bool = False
-             ) -> list[float]:
+def frame_ms(model, device, kernels: bool, fast_knet: bool = False,
+             cfg=CFG) -> list[float]:
     """CUDA-event ms of frames 1..T-1 of a rollout (frame 0 skips the K-Net)."""
     frames = frames_on(device, T)
-    step = make_infer_step(CFG, kernels=kernels, fast_knet=fast_knet)
+    step = make_infer_step(cfg, kernels=kernels, fast_knet=fast_knet)
     bv, valid, times = bv0_on(device), [False], []
     for t in range(T):
         start = torch.cuda.Event(enable_timing=True)
@@ -1178,7 +1226,9 @@ def quiet(fn, *args, **kwargs):
     return result, buf.getvalue()
 
 
-def check_contract(out_dir: str) -> None:
+def check_contract(out_dir: str, depth_in_range: bool = True) -> None:
+    """The export contract of ``out_dir``; ``depth_in_range=False`` (DGF's
+    guided filter) bounds the depth by 0 only."""
     files = set(os.listdir(out_dir))
     want = {f"{p}_{i:05d}.{ext}" for i in range(T_LOOP)
             for p, ext in (("img", "png"), ("d", "pgm"), ("conf", "pgm"))}
@@ -1200,7 +1250,8 @@ def check_contract(out_dir: str) -> None:
                   for i in range(T_LOOP) if f"d_{i:05d}.pgm" in files])
     c = np.stack([read_pgm(os.path.join(out_dir, f"conf_{i:05d}.pgm"))
                   for i in range(T_LOOP) if f"conf_{i:05d}.pgm" in files])
-    lo, hi = 1000 * CFG.d_min, 1000 * CFG.d_max
+    lo, hi = (1000 * CFG.d_min, 1000 * CFG.d_max) if depth_in_range \
+        else (0, 65535)
     check(d.shape[1:] == IMG_HW and d.min() >= lo - 1 and d.max() <= hi,
           f"depth pgm in [{lo:.0f}, {hi:.0f}]: [{d.min()}, {d.max()}], "
           f"shape {d.shape}")
@@ -1393,16 +1444,17 @@ def maps_equal_rollout(out_dir: str, depth, conf) -> int:
 
 
 def cli_flag_run(model, loop_info: dict, tmp: str, name: str, flags: list,
-                 **rollout_kw) -> None:
-    """``cli.test_kvnet`` with ``flags`` on phase 14's scene: its launches,
-    the export contract, and its maps against ``make_rollout(**rollout_kw)``
-    on the same windows."""
+                 cfg=CFG, ckpt: str | None = None, **rollout_kw) -> dict:
+    """``cli.test_kvnet`` with ``flags`` on phase 14's scene (its checkpoint,
+    or ``ckpt``): its launches, the export contract, and its maps against
+    ``make_rollout(cfg, **rollout_kw)`` on the same windows. Returns the
+    launches."""
     for mod in KERNELS.values():
         mod.launches = 0
     t0 = time.perf_counter()
     _, out = quiet(cli_test_kvnet.main, loop_args(
-        loop_info["root"], loop_info["ckpt"], os.path.join(tmp, name))
-        + flags)
+        loop_info["root"], ckpt or loop_info["ckpt"],
+        os.path.join(tmp, name)) + flags)
     cli_s = time.perf_counter() - t0
     launches = {n: mod.launches for n, mod in KERNELS.items()}
     print("  " + "\n  ".join(ln for ln in out.splitlines()
@@ -1414,14 +1466,15 @@ def cli_flag_run(model, loop_info: dict, tmp: str, name: str, flags: list,
           f"(expected {T_LOOP} sweeps and {T_LOOP} resamples), whole run "
           f"{cli_s:.2f} s")
     out_dir = os.path.join(tmp, name, "loop_0")
-    check_contract(out_dir)
+    check_contract(out_dir, depth_in_range=cfg.refine_net != "DGF")
     windows = loop_info["windows"]
-    depth, conf, _ = make_rollout(CFG, **rollout_kw)(
+    depth, conf, _ = make_rollout(cfg, **rollout_kw)(
         model, windows, bv0_on(windows["ref"].device), [False])
     diff = maps_equal_rollout(out_dir, depth, conf)
     check(diff == 0, f"cli.test_kvnet {' '.join(flags)}: all {T_LOOP} "
           f"frames' maps equal make_rollout({rollout_kw}) on the same "
           f"windows: max |diff| {diff} unit(s)")
+    return launches
 
 
 def phase_cached(model, device, loop_info: dict, tmp: str) -> None:
@@ -1678,10 +1731,12 @@ def read_launches() -> dict:
 
 def train_batch(cfg, device, n_lanes: int, seed: int, img_hw=None) -> dict:
     """A labelled ``synthetic_batch`` on ``device`` (at ``IMG_HW`` unless
-    given), as the loop uploads it (``lane_valid`` stays on the host)."""
+    given), as the loop uploads it (``lane_valid`` stays on the host); the
+    4D-bin labels only under ``refine_dup``, as the loaders give them."""
     batch, _ = synthetic_batch(cfg, n_lanes=n_lanes, img_hw=img_hw or IMG_HW,
                                seed=seed)
-    del batch["dmap_up4_imgsize_digit"]
+    if not cfg.refine_dup:
+        del batch["dmap_up4_imgsize_digit"]
     return upload_batch(batch, device)
 
 
@@ -2443,6 +2498,282 @@ def lba_args(cap: dict, loop_info: dict, tmp: str, arm: str,
             "--save_poses", "--timing", "--device", "cuda"]
 
 
+def head_cfg(name: str) -> ModelConfig:
+    return dataclasses.replace(CFG, **HEADS[name])
+
+
+def phase_heads(model, device, loop_info: dict, tmp: str) -> dict:
+    print(f"phase 22: the remaining heads, T={T} at {IMG_HW[1]}x{IMG_HW[0]} "
+          f"(D={CFG.ndepth}, V={CFG.n_views}, feature_dim "
+          f"{CFG.feature_dim}, fp32, seeded weights)", flush=True)
+    launches = {k: 0 for k in KERNELS}
+    frames = frames_on(device, T)
+    models, exact = {}, {}
+    for name in HEADS:
+        cfg = head_cfg(name)
+        models[name] = head = KVNet(cfg, device=device, seed=SEED,
+                                    single_refine=True)
+        print(f"  {name}:", flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        got, depth, conf = check_rollout(
+            head, frames, {"sweep_fused": T, "resample": T, "conv3d": 0},
+            cfg=cfg)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        for k in KERNELS:
+            launches[k] += got[k]
+        exact[name] = depth
+        again = make_rollout(cfg)(head, frames, bv0_on(device), [False])
+        check(all(torch.equal(a, b) for a, b in zip((depth, conf), again)),
+              f"{name}: two kernel-path rollouts equal bit for bit")
+        pdepth, pconf, _ = make_rollout(cfg, kernels=False)(
+            head, frames, bv0_on(device), [False])
+        for what, a, b in (("depth", depth, pdepth),
+                           ("confidence", conf, pconf)):
+            e, mean = max_err(a, b), float((a - b).abs().mean())
+            by_mean = name == "DGF" and what == "depth"
+            check(mean <= DGF_DEPTH_MEAN if by_mean
+                  else e <= ROLLOUT_TOL[what],
+                  f"{name}: kernel path vs plain path, {what}: max|err| "
+                  f"{e:.3e}, mean {mean:.3e} over {T} frames "
+                  f"({'mean' if by_mean else 'max'} held)")
+        step = make_infer_step(cfg)
+        first = step(head, {k: v[0] for k, v in frames.items()},
+                     bv0_on(device), [False])
+        sites = sync_sites(lambda: step(
+            head, {k: v[1] for k, v in frames.items()}, first.bv_predict,
+            [True]))
+        check(not sites, f"{name}: host syncs in one steady kernel-path "
+              f"step: {sum(sites.values())} {list(sites)[:3]}")
+        print(f"  {CARD[0]}: {name} rollout peak device memory "
+              f"{peak:.2f} GiB", flush=True)
+
+    # the DGF head on the card vs the CPU, first 2 frames: depth mean and max
+    cpu = KVNet(head_cfg("DGF"), device="cpu", single_refine=True)
+    cpu.load_state_dict(models["DGF"].state_dict())
+    cdepth, _, _ = make_rollout(head_cfg("DGF"))(
+        cpu, {k: v[:2].cpu() for k, v in frames.items()}, bv0_on("cpu"),
+        [False])
+    diff = (exact["DGF"][:2].cpu() - cdepth).abs()
+    check(float(diff.max()) <= ROLLOUT_TOL["depth"],
+          f"DGF card vs CPU, first 2 frames, depth: max|err| "
+          f"{float(diff.max()):.3e} m, mean {float(diff.mean()):.3e} m")
+
+    # fast_knet under refine_costv: the conv kernel, 10 launches a fused frame
+    cfg = head_cfg("refine_costv")
+    got, fdepth, _ = check_rollout(
+        models["refine_costv"], frames,
+        {"sweep_fused": T, "resample": T, "conv3d": 10 * (T - 1)}, cfg=cfg,
+        fast_knet=True)
+    for k in KERNELS:
+        launches[k] += got[k]
+    dev = float((fdepth - exact["refine_costv"]).abs().mean())
+    check(dev < FAST_DEPTH_MEAN,
+          f"refine_costv with fast_knet vs the exact path: mean |depth "
+          f"difference| {dev:.3e} m (< {FAST_DEPTH_MEAN})")
+
+    # ms per frame of each head beside the default head, in turns
+    paths = {"DPV (phase 5)": (model, CFG)}
+    paths.update({n: (models[n], head_cfg(n)) for n in HEADS})
+    times = {n: [] for n in paths}
+    for _ in range(2):
+        for n, (m, c) in paths.items():
+            times[n].append(statistics.median(frame_ms(m, device, True,
+                                                       cfg=c)[1:]))
+    for n, ts in times.items():
+        print(f"  {CARD[0]}: {n}: {' / '.join(f'{t:.3f}' for t in ts)} ms "
+              f"per frame (CUDA events, median of frames 2 on, two turns)",
+              flush=True)
+    time_rnet_dup(device)
+
+    # the test CLI with DGF on phase 14's scene, from a reference-style .tar
+    ckpt = os.path.join(tmp, "dgf.tar")
+    torch.save({"state_dict": {f"module.{k}": v.cpu() for k, v in
+                               models["DGF"].state_dict().items()}}, ckpt)
+    got = cli_flag_run(models["DGF"], loop_info, tmp, "cli_dgf",
+                       ["--refine_net", "DGF"], cfg=head_cfg("DGF"),
+                       ckpt=ckpt)
+    for k in KERNELS:
+        launches[k] += got[k]
+    del models, exact
+    for k, n in train_heads(device, loop_info, tmp).items():
+        launches[k] += n
+    legacy_heads(device)
+    return launches
+
+
+def rnet_flops(D: int, dup: bool, C0: int = 64, C1: int = 32, C2: int = 3,
+               h: int = IMG_HW[0] // 4, w: int = IMG_HW[1] // 4) -> float:
+    """Multiply-adds x 2 of one R-Net pass (``models/rnet.py``): 3x3 convs
+    2*9*Cin*Cout per output pixel, the k=4 s=2 transposed convs 2*16*Cin*Cout
+    per input pixel."""
+    D0 = 2 * D if dup else D
+    D1 = 2 * D0 if dup else D
+    c0, c1, c2 = D + C0, D0 + C1, D1 + C2
+    px0, px1, px2 = h * w, 4 * h * w, 16 * h * w
+    return 2 * (9 * 2 * c0 * c0 * px0 + 16 * c0 * D0 * px0
+                + 9 * 2 * c1 * c1 * px1 + 16 * c1 * D1 * px1
+                + 9 * (c2 * c2 + c2 * D1 + D1 * D1) * px2)
+
+
+def time_rnet_dup(device) -> None:
+    """One R-Net pass at the operating point, default and ``refine_dup``:
+    CUDA events over 10 passes, beside its fp32 operations bound."""
+    g = torch.Generator().manual_seed(SEED)
+    h, w = IMG_HW[0] // 4, IMG_HW[1] // 4
+    for dup in (False, True):
+        rnet = RNet(D=CFG.ndepth, C0=CFG.feature_dim, device=device,
+                    upsample_D=dup)
+        layers_mod.reference_init_(rnet, SEED)
+        args = [torch.rand(1, CFG.ndepth, h, w, generator=g),
+                torch.randn(1, CFG.feature_dim, h, w, generator=g),
+                torch.randn(1, 32, 2 * h, 2 * w, generator=g),
+                torch.randn(1, 3, *IMG_HW, generator=g)]
+        args = [a.to(device) for a in args]
+        with torch.no_grad(), step_mod.step_numerics(False):
+            for _ in range(2):
+                rnet(*args)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(10):
+                out = rnet(*args)
+            end.record()
+            torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / 10
+        flops = rnet_flops(CFG.ndepth, dup)
+        b_ms, by = bound(4 * sum(a.numel() for a in args) + 4 * out.numel(),
+                         flops, "fp32")
+        print(f"  {CARD[0]}: R-Net {'refine_dup' if dup else 'default'} "
+              f"pass, out {tuple(out.shape)}: {ms:.3f} ms, "
+              f"{flops / 1e9:.1f} GFLOP fp32, bound {b_ms:.3f} ms "
+              f"({by}), {flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+
+
+def train_heads(device, loop_info: dict, tmp: str) -> dict:
+    """``make_train_step`` for 3 steps at 1 lane, fp32, under each trainable
+    head, twice from the same weights; then ``cli.train_kvnet
+    --refine_dup``. Returns the kernel launches."""
+    launches = {k: 0 for k in KERNELS}
+    h, w = IMG_HW[0] // 4, IMG_HW[1] // 4
+    for name in ("refine_dup", "dnet_bayes", "refine_costv"):
+        cfg = head_cfg(name)
+        step = make_train_step(cfg, TRAIN)
+        batch = train_batch(cfg, device, 1, SEED + 2)
+        carry = random_carry(1, CFG.ndepth, h, w, device)
+        weights = {k: v.clone() for k, v in
+                   KVNet(cfg, device=device, seed=SEED).state_dict().items()}
+        runs = []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):
+            state = train_state(cfg, device, weights)
+            reset_launches()
+            losses, ms, carries = [], [], []
+            for _ in range(TRAIN_HEAD_STEPS):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = step(state, batch, carry, [True])
+                end.record()
+                losses.append(out.loss)
+                carries.append(out.bv_predict)
+                torch.cuda.synchronize()
+                ms.append(start.elapsed_time(end))
+            got = read_launches()
+            runs.append((state.model.state_dict(), torch.stack(losses),
+                         torch.stack(carries), ms, got))
+            del state
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        (p1, l1, c1, _, n1), (p2, l2, c2, ms, _) = runs
+        for k in KERNELS:
+            launches[k] += n1[k] + runs[1][4][k]
+        vals = l1.cpu()
+        check(bool(torch.isfinite(vals).all()) and float(vals[-1])
+              < float(vals[0]) and n1 == {"sweep_fused": 0,
+                                          "resample": TRAIN_HEAD_STEPS,
+                                          "conv3d": 0},
+              f"{name} training, one window with a valid carry: losses "
+              f"{' '.join(f'{float(v):.4f}' for v in vals)} (finite, "
+              f"falling), launches {n1}")
+        differ = [k for k in p1 if not torch.equal(p1[k], p2[k])]
+        check(not differ and torch.equal(l1, l2) and torch.equal(c1, c2),
+              f"{name}: two {TRAIN_HEAD_STEPS}-step runs equal bit for bit "
+              f"({len(differ)} of {len(p1)} tensors differ; losses and "
+              f"carry {'equal' if torch.equal(l1, l2) and torch.equal(c1, c2) else 'differ'})")
+        print(f"  {CARD[0]}: {name} train step, fp32, 1 lane: "
+              f"{statistics.median(ms[1:]):.2f} ms (CUDA events, median of "
+              f"steps 2 on; {' / '.join(f'{t:.2f}' for t in ms)}), peak "
+              f"device memory {peak:.2f} GiB", flush=True)
+        del runs, p1, p2, weights
+    root, save = loop_info["root"], os.path.join(tmp, "trained_dup")
+    argv = ["--exp_name", "dup", "--dataset", "scannet", "--dataset_path",
+            root, "--ndepth", str(CFG.ndepth), "--feature_dim",
+            str(CFG.feature_dim), "--d_min", str(CFG.d_min), "--d_max",
+            str(CFG.d_max), "--t_win", str(CFG.t_win_r), "--img_width",
+            str(IMG_HW[1]), "--img_height", str(IMG_HW[0]), "--batch_size",
+            "1", "--LR", str(TRAIN.lr), "--max_steps", "2", "--save_dir",
+            save, "--log_dir", os.path.join(tmp, "runs_dup"),
+            "--refine_dup", "--device", "cuda"]
+    reset_launches()
+    t0 = time.perf_counter()
+    state, _ = quiet(cli_train_kvnet.main, argv)
+    got = read_launches()
+    for k in KERNELS:
+        launches[k] += got[k]
+    check(state.step == 2 and os.listdir(os.path.join(save, "dup"))
+          == ["ckpt_00000002"] and got["resample"] == 2
+          and state.model.r_net.conv2_2.weight.shape[0] == 4 * CFG.ndepth,
+          f"cli.train_kvnet --refine_dup: {state.step} steps in "
+          f"{time.perf_counter() - t0:.1f} s on the up4 labels, "
+          f"checkpoints {os.listdir(os.path.join(save, 'dup'))}, "
+          f"launches {got}")
+    return launches
+
+
+def legacy_heads(device) -> None:
+    """The six legacy refine heads on the card vs the CPU, the same seeded
+    weights and inputs, fp32 (TF32 off since phase 1), at the DPV grid."""
+    g = torch.Generator().manual_seed(SEED)
+    h, w = IMG_HW[0] // 4, IMG_HW[1] // 4
+    img = torch.randn(1, 3, *IMG_HW, generator=g)
+    vol = torch.randn(1, 1, CFG.ndepth, h, w, generator=g)
+    img_vol = torch.randn(1, 3, CFG.ndepth, h, w, generator=g)
+    cases = {
+        "unet2d": (lambda d: legacy.RefineNetUnet2D(7, device=d),
+                   (torch.randn(1, 4, h, w, generator=g), img)),
+        "demon": (lambda d: legacy.RefineNetDeMoN(3, device=d),
+                  (CFG.d_max * torch.rand(1, 1, h, w, generator=g), img)),
+        "3d": (lambda d: legacy.RefineNet3D(4, True, device=d),
+               (vol, img_vol)),
+        "3d_nearest": (lambda d: legacy.RefineNet3D(4, False, device=d),
+                       (vol, img_vol)),
+        "unet3d_res": (lambda d: legacy.RefineNetUNet3D(4, True, device=d),
+                       (vol, img_vol)),
+        "unet3d": (lambda d: legacy.RefineNetUNet3D(4, False, device=d),
+                   (vol, img_vol)),
+    }
+    for name, (make, ins) in cases.items():
+        card = layers_mod.reference_init_(make(device), SEED)
+        cpu = make("cpu")
+        cpu.load_state_dict(card.state_dict())
+        on_card = [x.to(device) for x in ins]
+        with torch.no_grad():
+            want = cpu(*ins)
+            got = card(*on_card)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(5):
+                card(*on_card)
+            end.record()
+            torch.cuda.synchronize()
+        rel = max_err(got.cpu(), want) / float(want.abs().max())
+        check(got.shape == want.shape and bool(torch.isfinite(got).all())
+              and rel <= LEGACY_TOL,
+              f"legacy head {name}: out {tuple(got.shape)}, card vs CPU "
+              f"max|err| / max|out| {rel:.2e} (<= {LEGACY_TOL}); "
+              f"{start.elapsed_time(end) / 5:.3f} ms on {CARD[0]}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     device = phase_device()
@@ -2471,7 +2802,8 @@ def main() -> int:
         phase_bf16(model, device, frames, depth, loop_info)
         for path in (phase_train(device, loop_info, tmp),
                      phase_kitti(device, tmp, errs),
-                     phase_lba(device, loop_info, tmp, errs)):
+                     phase_lba(device, loop_info, tmp, errs),
+                     phase_heads(model, device, loop_info, tmp)):
             for name, n in path.items():
                 launches[name] += n
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of command "

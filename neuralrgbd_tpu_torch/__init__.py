@@ -17,7 +17,10 @@ Layer map:
                   ``csrc/``: the plane sweep, the DPV prediction step and
                   the 3x3x3 conv), each beside its plain PyTorch twin, and
                   the fast K-Net chain on the conv kernel.
-- ``models``      D-Net feature extractor, K-Net, R-Net, KVNet as ``nn.Module``s.
+- ``models``      D-Net feature extractor, K-Net, R-Net, KVNet as ``nn.Module``s,
+                  with every head of the JAX KVNet (DPV, ``refine_dup``,
+                  DGF's guided filter, ``refine_costv``, ``dnet_bayes``)
+                  and the four legacy refine heads.
 - ``infer``       the per-frame inference step, the video rollout and the
                   production loop with its export.
 - ``train``       the losses, the train step (its carry on the resample

@@ -72,8 +72,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def model_config(args):
-    """The ``ModelConfig`` the CLI flags describe (``KVNet`` raises for the
-    options the port does not run yet: ``check_supported``)."""
+    """The ``ModelConfig`` the CLI flags describe (``--refine_net DGF``
+    included: its maps are the guided filter's depth and the low-res
+    posterior's confidence, ``infer/step.depth_and_confidence``)."""
     from neuralrgbd_tpu_torch.config import ModelConfig
 
     return ModelConfig(

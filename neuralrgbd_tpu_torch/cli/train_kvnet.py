@@ -109,7 +109,6 @@ def main(argv=None):
         exp_name=args.exp_name,
     )
     batch_size = args.batch_size or 1
-    # KVNet raises here for the options the port does not run yet
     model = KVNet(cfg, device=args.device, seed=tcfg.seed)
 
     exp_log = os.path.join(args.log_dir, args.exp_name)
@@ -164,18 +163,24 @@ def main(argv=None):
 
 
 def _dataset_factory(args, cfg, img_wh):
-    # the up4 labels of JAX's refine_dup training come back with that head
-    # (KVNet raises for it)
+    def with_labels_cfg(make):
+        # refine_dup trains against the 4*D-bin labels (JAX's
+        # with_labels_cfg, neuralrgbd_tpu/cli/train_kvnet.py:170-173)
+        if not cfg.refine_dup:
+            return make
+        return lambda i: make(i).enable_up4_labels()
+
     if args.dataset == "synthetic":
         from neuralrgbd_tpu_torch.data.synthetic import synthetic_dataset
 
-        return synthetic_dataset(cfg, img_size_wh=img_wh)
+        make, n = synthetic_dataset(cfg, img_size_wh=img_wh)
+        return with_labels_cfg(make), n
     if args.dataset == "scannet":
         from neuralrgbd_tpu_torch.data.scannet import (make_trajectory,
                                                        n_trajectories)
 
         n = n_trajectories(args.dataset_path, args.split_file)
-        return (lambda i: make_trajectory(
+        return with_labels_cfg(lambda i: make_trajectory(
             i, args.frame_interv, args.dataset_path, args.split_file,
             img_size_wh=img_wh, d_candi=cfg.d_candi)), n
     if args.dataset == "7scenes":
@@ -183,7 +188,7 @@ def _dataset_factory(args, cfg, img_wh):
                                                            n_trajectories)
 
         n = n_trajectories(args.dataset_path)
-        return (lambda i: make_trajectory(
+        return with_labels_cfg(lambda i: make_trajectory(
             i, args.dataset_path, img_size_wh=img_wh,
             d_candi=cfg.d_candi)), n
     if args.dataset == "kitti":
@@ -191,7 +196,7 @@ def _dataset_factory(args, cfg, img_wh):
                                                      n_trajectories)
 
         n = n_trajectories(args.dataset_path)
-        return (lambda i: make_trajectory(
+        return with_labels_cfg(lambda i: make_trajectory(
             i, args.dataset_path, img_size_wh=img_wh,
             d_candi=cfg.d_candi)), n
     raise ValueError(args.dataset)

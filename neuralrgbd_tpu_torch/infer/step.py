@@ -10,6 +10,10 @@ from. JAX's ``make_infer_step`` swaps in ``cfg.infer_dtype`` only when its
 backend is a TPU (``neuralrgbd_tpu/infer/step.py:138-141``) and keeps
 ``cfg.dtype`` on every other backend; the card is no TPU, so the port never
 reads ``infer_dtype``.
+
+Depth and confidence come from each head as JAX's step takes them
+(``depth_and_confidence``); the prediction always resamples the low-res
+posterior ``dpv``, whatever the head.
 """
 
 from __future__ import annotations
@@ -19,10 +23,12 @@ import dataclasses
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from neuralrgbd_tpu_torch.config import ModelConfig
 from neuralrgbd_tpu_torch.models.kvnet import KVNet, check_supported
+from neuralrgbd_tpu_torch.models.layers import upsample_bilinear_ac
 from neuralrgbd_tpu_torch.ops.camera import Camera
 from neuralrgbd_tpu_torch.ops.cuda.resample import predict_next_cuda
 from neuralrgbd_tpu_torch.ops.dpv import (confidence_map, depth_regression,
@@ -100,11 +106,36 @@ def make_frame_features(tf32: bool = False):
 
 
 class InferStepOutput(NamedTuple):
+    """``dpv_refined`` is the head's output: the refined DPV, (N, 4D, H, W)
+    with ``refine_dup``, or with ``refine_net='DGF'`` the (N, H, W) depth
+    map, which is then ``depth`` itself, and ``confidence`` the low-res
+    posterior's exp(max_d) upsampled (align_corners) to image size."""
+
     dpv: torch.Tensor            # (N, D, h, w) fused posterior (low res)
     dpv_refined: torch.Tensor    # (N, D, H, W) refined DPV (image res)
     bv_predict: torch.Tensor     # (N, D, h, w) prediction for the next frame
     depth: torch.Tensor          # (N, H, W) E[d] of the refined DPV
     confidence: torch.Tensor     # (N, H, W) exp(max_d) of the refined DPV
+
+
+def depth_and_confidence(cfg: ModelConfig, dpv: torch.Tensor,
+                         dpv_refined: torch.Tensor,
+                         d_candi_r: torch.Tensor) -> tuple:
+    """One lane's (depth, confidence), (H, W) each, from the fused
+    posterior ``dpv`` (D, h, w) and the head's output ``dpv_refined``
+    (JAX ``infer/step.py:183-201``):
+
+    - DGF: the head's depth map; the confidence of the low-res posterior,
+      upsampled (the reference defines no DGF export; this is the DPV
+      head's exp(max_d) at the DPV's own resolution);
+    - the DPV heads: E[d] and exp(max_d) of the refined DPV over
+      ``d_candi_r``, which is ``cfg.d_candi_up4`` under ``refine_dup``."""
+    if cfg.refine_net == "DGF":
+        conf = upsample_bilinear_ac(confidence_map(dpv)[None, None],
+                                    dpv_refined.shape)[0, 0]
+        return dpv_refined, conf
+    return (depth_regression(dpv_refined, d_candi_r),
+            confidence_map(dpv_refined))
 
 
 def make_infer_step(cfg: ModelConfig, kernels: bool = True,
@@ -146,9 +177,17 @@ def make_infer_step(cfg: ModelConfig, kernels: bool = True,
     @torch.no_grad()
     def run(model: KVNet, batch, bv_predict, bv_valid, feats):
         dev = bv_predict.device
-        d_candi = d_candis.get(dev)
-        if d_candi is None:
-            d_candi = d_candis[dev] = torch.as_tensor(cfg.d_candi, device=dev)
+        if dev not in d_candis:     # both grids in one copy (one sync)
+            # the refined DPV's bins: under refine_dup cfg.d_candi_up4,
+            # linspace(d_min, d_max, 4D), the labels' grid (scanNet.py:327),
+            # not the reference's display grid linspace(0, d_max, 4D)
+            # (train_KVNet.py:75), which does not match the labels
+            d_candi_r = cfg.d_candi_up4 if cfg.refine_dup else cfg.d_candi
+            grids = torch.as_tensor(np.concatenate(
+                [cfg.d_candi, d_candi_r]), device=dev)
+            d_candis[dev] = grids.split([cfg.ndepth, grids.numel()
+                                         - cfg.ndepth])
+        d_candi, d_candi_r = d_candis[dev]
         lanes = []
         with step_numerics(tf32):
             for n, valid in enumerate(bv_valid):
@@ -160,8 +199,9 @@ def make_infer_step(cfg: ModelConfig, kernels: bool = True,
                             kernels=kernels, fast_knet=fast_knet,
                             coarse_d=cfg.knet_coarse_d)
                 lanes.append((out.dpv, out.dpv_refined,
-                              depth_regression(out.dpv_refined, d_candi),
-                              confidence_map(out.dpv_refined)))
+                              *depth_and_confidence(cfg, out.dpv,
+                                                    out.dpv_refined,
+                                                    d_candi_r)))
             dpv, dpv_refined, depth, conf = (torch.stack(x)
                                              for x in zip(*lanes))
             bv_next = predict_next(dpv, batch["pose_next"], batch["K"],

@@ -1,14 +1,28 @@
 """The full KV-Net: D-Net measurement + K-Net temporal fusion + R-Net refine
-(counterpart of ``neuralrgbd_tpu/models/kvnet.py``, default DPV head).
+(counterpart of ``neuralrgbd_tpu/models/kvnet.py``).
 
 One call runs one lane (trajectory), so BatchNorm sees the V+1 frames of
 one window, exactly as the reference's one-trajectory-per-GPU forward.
 Module names give the reference KVNET's state_dict keys
-(``feature_extractor.feature_extraction.*``, ``kv_net.*``, ``r_net.*``).
+(``feature_extractor.feature_extraction.*``, ``d_net.*``, ``kv_net.*``,
+``r_net.*``).
 
 Unlike JAX, where a static graph runs the K-Net on the first frame too and
 ``jnp.where`` discards it, eager PyTorch skips the K-Net when the
 prediction is invalid; the outputs are the same.
+
+The heads and D-Net branches of the JAX KVNet, each as JAX's:
+
+- ``refine_net='DPV'`` (the default): the R-Net refines the DPV to image
+  resolution; with ``refine_dup`` it also upsamples D 4x (4D bins).
+- ``refine_net='DGF'``: the DPV is regressed to a low-res depth map and
+  the deep guided filter upsamples it (``models/guided_filter.py``): the
+  refined fields are then (H, W) depth maps, not DPVs.
+- ``refine_costv``: three D->D 3x3 convs on the cost volume before the
+  softmax (``d_net.conv0``, ``d_net.conv0_1``, ``d_net.conv0_2``).
+- ``dnet_bayes``: the posterior is ``log_softmax(bv_cur + bv_predict)``,
+  with no K-Net; the model then has no ``kv_net`` parameters, as JAX's
+  has none, and ``fast_knet`` is moot.
 
 The three inference deviations of the JAX KVNet run here, each as JAX's:
 ``cfg.knet_coarse_d`` (the K-Net at D/cd), ``cfg.fe_per_frame_bn`` (B=1
@@ -23,6 +37,7 @@ device (the CPU tests pass ``device="cpu"``).
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import NamedTuple, Optional
 
 import torch
@@ -31,8 +46,10 @@ from torch import nn
 
 from neuralrgbd_tpu_torch.config import ModelConfig
 from neuralrgbd_tpu_torch.models.feature_extractor import FeatureExtractor
+from neuralrgbd_tpu_torch.models.guided_filter import RefineNetDGF
 from neuralrgbd_tpu_torch.models.knet import KNet
-from neuralrgbd_tpu_torch.models.layers import (linear_interp_matrix_ac,
+from neuralrgbd_tpu_torch.models.layers import (Conv2d,
+                                                linear_interp_matrix_ac,
                                                 reference_init_)
 from neuralrgbd_tpu_torch.models.rnet import RNet
 from neuralrgbd_tpu_torch.ops.camera import Camera
@@ -43,7 +60,9 @@ from neuralrgbd_tpu_torch.ops.sweep import (sweep_cost_volume,
 
 
 class KVNetOutput(NamedTuple):
-    """All DPVs are log scale: low-res (D, h, w), refined (D, H, W)."""
+    """All DPVs are log scale: low-res (D, h, w); refined (D, H, W), or
+    (4D, H, W) with ``refine_dup``. With ``refine_net='DGF'`` the two
+    refined fields are (H, W) depth maps in metres instead."""
 
     bv_cur: torch.Tensor            # D-Net measurement
     dpv: torch.Tensor               # fused posterior (== bv_cur on first frame)
@@ -52,19 +71,9 @@ class KVNetOutput(NamedTuple):
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for the options of the JAX KVNet this
-    port does not run yet, and ``ValueError`` for a ``knet_coarse_d`` that
-    does not divide ``ndepth`` (JAX raises it in the forward)."""
-    deferred = {
-        "refine_net='DGF'": cfg.refine_net == "DGF",
-        "refine_costv": cfg.refine_costv,
-        "dnet_bayes": cfg.dnet_bayes,
-        "refine_dup": cfg.refine_dup,
-    }
-    named = [name for name, on in deferred.items() if on]
-    if named:
-        raise NotImplementedError(
-            "not ported to the PyTorch KVNet yet: " + ", ".join(named))
+    """Raise ``ValueError`` for a ``knet_coarse_d`` that does not divide
+    ``ndepth`` (JAX raises it in the forward). Every head of the JAX KVNet
+    runs; as in JAX, a ``refine_net`` other than 'DGF' is the DPV head."""
     check_coarse_d(cfg.knet_coarse_d, cfg.ndepth)
 
 
@@ -95,11 +104,25 @@ class KVNet(nn.Module):
         self.feature_extractor = nn.ModuleDict({
             "feature_extraction": FeatureExtractor(cfg.feature_dim, device,
                                                    dt)})
-        self.kv_net = KNet(cfg.kvnet_in_channels, cfg.kv_feature_dim, device,
-                           compute_dtype=dt)
-        self.r_net = RNet(D=cfg.ndepth, C0=cfg.feature_dim, C1=32,
-                          C2=cfg.refine_channel, device=device,
-                          compute_dtype=dt)
+        if not cfg.dnet_bayes:
+            self.kv_net = KNet(cfg.kvnet_in_channels, cfg.kv_feature_dim,
+                               device, compute_dtype=dt)
+        if cfg.refine_net == "DGF":
+            self.r_net = RefineNetDGF(device=device, compute_dtype=dt)
+        else:
+            self.r_net = RNet(D=cfg.ndepth, C0=cfg.feature_dim, C1=32,
+                              C2=cfg.refine_channel, device=device,
+                              compute_dtype=dt, upsample_D=cfg.refine_dup)
+        if cfg.refine_costv:
+            # basic.py:189-196: conv2d_leakyRelu x2 + a plain conv2d, D
+            # channels, on the cost volume before the softmax
+            D = cfg.ndepth
+            conv = lambda: Conv2d(D, D, 3, 1, padding=1, bias=True,
+                                  device=device, compute_dtype=dt)
+            self.d_net = nn.Sequential(OrderedDict(
+                conv0=nn.Sequential(conv(), nn.LeakyReLU()),
+                conv0_1=nn.Sequential(conv(), nn.LeakyReLU()),
+                conv0_2=conv()))
         self._interp: dict = {}
         reference_init_(self, seed)
 
@@ -172,13 +195,26 @@ class KVNet(nn.Module):
                       sigma=cfg.sigma_soft_max, feat_dist=cfg.feat_dist,
                       keep_last_channels=keep)
         cost, warped_rgb = swept if keep else (swept, None)
+        if cfg.refine_costv:
+            cost = self.d_net(cost[None])[0]
         bv_cur = F.log_softmax(-cost, dim=0)
 
-        def refine(dpv_log):
-            return self.r_net(dpv_log.exp()[None], feat[-1:], layer1[-1:],
-                              frames[-1:])[0]
+        if cfg.refine_net == "DGF":
+            def refine(dpv_log):
+                # depth-regress the low-res DPV, guided-filter upsample
+                # (KVNET.py:127-131,178-179): an (H, W) depth map
+                dmap_lr = torch.einsum("dhw,d->hw", dpv_log.exp(), d_candi)
+                return self.r_net(dmap_lr[None], frames[-1:])[0]
+        else:
+            def refine(dpv_log):
+                return self.r_net(dpv_log.exp()[None], feat[-1:],
+                                  layer1[-1:], frames[-1:])[0]
 
-        if bv_valid:
+        if bv_valid and cfg.dnet_bayes:
+            # in-net Bayesian filtering (basic.py:309-321): the log-space
+            # product of measurement and prediction, no learned gain
+            dpv = F.log_softmax(bv_cur + bv_predict, dim=0)
+        elif bv_valid:
             # ---- K-Net temporal fusion ----
             if warped_rgb is None:
                 warped_rgb = warp_to_ref_over_depths(

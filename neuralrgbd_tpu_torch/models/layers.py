@@ -94,11 +94,20 @@ class ConvTranspose2d(_ComputeDtype, nn.ConvTranspose2d):
                                   self.dilation)
 
 
-class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` on batch statistics that also takes one value per
-    channel, where torch's own raises: the value is its own mean, so the
-    output is JAX's ``(x - mean) * rsqrt(0 + eps) * scale + bias``, the
-    bias."""
+class ConvTranspose3d(_ComputeDtype, nn.ConvTranspose3d):
+    """torch's ConvTranspose3d; the reference's 3-D heads build it with
+    k=3, s=2, p=1, output_padding=1 and no bias (it doubles D, H, W)."""
+
+    def _conv(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose3d(x, w, None, self.stride, self.padding,
+                                  self.output_padding, self.groups,
+                                  self.dilation)
+
+
+class _OneValueBN:
+    """Batch-statistics BatchNorm that also takes one value per channel,
+    where torch's own raises: the value is its own mean, so the output is
+    JAX's ``(x - mean) * rsqrt(0 + eps) * scale + bias``, the bias."""
 
     def __init__(self, num_features: int, device=None):
         super().__init__(num_features, track_running_stats=False,
@@ -107,8 +116,16 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.numel() != x.shape[1]:
             return super().forward(x)
-        return (x - x) * self.weight.view(1, -1, 1, 1) + self.bias.view(
-            1, -1, 1, 1)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        return (x - x) * self.weight.view(shape) + self.bias.view(shape)
+
+
+class BatchNorm2d(_OneValueBN, nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` on batch statistics (4-D input)."""
+
+
+class BatchNorm3d(_OneValueBN, nn.BatchNorm3d):
+    """``nn.BatchNorm3d`` on batch statistics (5-D input)."""
 
 
 def convbn(in_planes: int, out_planes: int, kernel: int, stride: int,
@@ -125,12 +142,21 @@ def convbn(in_planes: int, out_planes: int, kernel: int, stride: int,
 
 def convbn_3d(in_planes: int, out_planes: int, kernel: int, stride: int,
               pad: int, device=None,
-              compute_dtype: Optional[torch.dtype] = None) -> nn.Sequential:
-    """PSMNet ``convbn_3d``: Conv3d (no bias) + BatchNorm3d on batch statistics."""
+              compute_dtype: Optional[torch.dtype] = None,
+              bias: bool = False) -> nn.Sequential:
+    """PSMNet ``convbn_3d``: Conv3d + BatchNorm3d on batch statistics; the
+    conv has a bias only as ``convbn_3d_bias`` (``bias=True``, the legacy
+    'UNet' head's)."""
     return nn.Sequential(
         Conv3d(in_planes, out_planes, kernel, stride, padding=pad,
-               bias=False, device=device, compute_dtype=compute_dtype),
-        nn.BatchNorm3d(out_planes, track_running_stats=False, device=device))
+               bias=bias, device=device, compute_dtype=compute_dtype),
+        BatchNorm3d(out_planes, device=device))
+
+
+def upsample_nearest_3d(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """torch ``nn.Upsample(scale_factor=2, mode='nearest')`` on (N, C, D, H,
+    W): every voxel repeated ``factor`` times along D, H and W."""
+    return F.interpolate(x, scale_factor=factor, mode="nearest")
 
 
 def avg_pool2d(x: torch.Tensor, window: int) -> torch.Tensor:
@@ -225,8 +251,9 @@ def bilinear_kernel(kh: int, kw: int) -> np.ndarray:
 def reference_init_(module: nn.Module, seed: int) -> nn.Module:
     """Seeded reference initialisation, in place, identical on every device.
 
-    Conv weights: normal with std sqrt(2 / (prod(kernel) * out_channels));
-    transposed-conv weights: the bilinear kernel on every (in, out) pair;
+    Conv weights (and the 3-D transposed convs', as JAX's): normal with
+    std sqrt(2 / (prod(kernel) * out_channels)); 2-D transposed-conv
+    weights: the bilinear kernel on every (in, out) pair;
     biases 0; BN scale 1, bias 0. Numbers come from a CPU
     ``torch.Generator`` in module order and are then copied to the device.
     """
@@ -235,7 +262,7 @@ def reference_init_(module: nn.Module, seed: int) -> nn.Module:
         if isinstance(m, nn.ConvTranspose2d):
             k = torch.from_numpy(bilinear_kernel(*m.kernel_size))
             m.weight.copy_(k.expand_as(m.weight))
-        elif isinstance(m, (nn.Conv2d, nn.Conv3d)):
+        elif isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)):
             n = math.prod(m.kernel_size) * m.out_channels
             w = torch.randn(m.weight.shape, generator=gen) * math.sqrt(2.0 / n)
             m.weight.copy_(w)

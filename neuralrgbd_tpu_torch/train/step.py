@@ -36,6 +36,13 @@ How the port meets JAX's semantics:
   instead of by the card's atomic adds, so two runs of the same steps
   give the same bits (ROADMAP Queue C, C2). The forwards are unchanged.
 - No host sync: the loss stays on the device.
+
+The heads train as in JAX: ``refine_dup`` takes its two image-size NLL
+terms against ``batch["dmap_up4_imgsize_digit"]`` (the 4D-bin labels,
+train_utils/train_KVNet.py:107-108); ``refine_costv`` and ``dnet_bayes``
+train ``d_net.*``, and under ``dnet_bayes`` there is no K-Net to train.
+The combinations JAX's step cannot run raise ``ValueError`` when the step
+is made (``check_trainable``).
 """
 
 from __future__ import annotations
@@ -168,6 +175,26 @@ class TrainStepOutput(NamedTuple):
     depth_lowres: torch.Tensor  # (N, h, w) E[d] of the fused DPV (logging)
 
 
+def check_trainable(cfg: ModelConfig, tcfg: TrainConfig) -> None:
+    """``ValueError`` for the head and loss combinations JAX's train step
+    cannot run; the port adds no semantics of its own there. Under
+    ``refine_net='DGF'`` the refined fields are (H, W) depth maps, which
+    neither the NLL nor the L1 loss takes; under ``refine_dup`` the L1
+    loss regresses a 4D-bin DPV over the D-bin ``d_candi``."""
+    if tcfg.loss_type not in ("NLL", "L1"):
+        raise ValueError(f"unknown loss_type: {tcfg.loss_type}")
+    if cfg.refine_net == "DGF":
+        raise ValueError(
+            f"refine_net='DGF' with loss_type={tcfg.loss_type!r} does not "
+            f"train: the refined fields are depth maps, not DPVs (JAX's "
+            f"train step fails on them too)")
+    if cfg.refine_dup and tcfg.loss_type == "L1":
+        raise ValueError(
+            "refine_dup with loss_type='L1' does not train: the refined DPV "
+            "has 4*ndepth bins and the L1 depth regresses over d_candi's "
+            "ndepth (JAX's train step fails on it too)")
+
+
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, kernels: bool = True):
     """Returns ``train_step(state, batch, bv_predict, bv_valid,
     generator=None) -> TrainStepOutput``; ``state`` is updated in place and
@@ -184,11 +211,16 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, kernels: bool = True):
 
     ``kernels`` runs the carry on the resample kernel (its plain twin for
     CPU tensors); False runs it on the plain ops lane by lane. The forward
-    runs on the plain ops either way.
+    runs on the plain ops either way. With ``cfg.refine_dup`` the batch
+    also carries ``dmap_up4_imgsize_digit`` (N, H, W), the 4D-bin labels
+    of the image-size terms.
     """
     check_supported(cfg)
-    if tcfg.loss_type not in ("NLL", "L1"):
-        raise ValueError(f"unknown loss_type: {tcfg.loss_type}")
+    check_trainable(cfg, tcfg)
+    # refine_dup: the image-size NLL terms against the 4*D-bin labels
+    # (train_utils/train_KVNet.py:107-108)
+    img_labels = ("dmap_up4_imgsize_digit" if cfg.refine_dup
+                  else "dmap_imgsize_digit")
     d_candis: dict = {}   # per device: copied there once (a copy syncs)
 
     def lane_loss(model, batch, n, d_candi, bv_predict, bv_valid):
@@ -198,8 +230,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, kernels: bool = True):
         # JAX's jnp.where(bv_valid, fused, 0.0) is this host branch
         if tcfg.loss_type == "NLL":
             # 4 NLL terms (train_utils/train_KVNet.py:103-118)
-            digit, img_digit = batch["dmap_digit"][n], \
-                batch["dmap_imgsize_digit"][n]
+            digit, img_digit = batch["dmap_digit"][n], batch[img_labels][n]
             loss = nll_dpv_loss(out.bv_cur, digit) + nll_dpv_loss(
                 out.dpv_cur_refined, img_digit)
             if bv_valid:

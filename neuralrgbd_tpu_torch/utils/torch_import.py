@@ -5,11 +5,16 @@ The JAX package imports the reference's torch state_dicts with
 ``build_name_map`` (torch key -> flax path) and ``_transform`` (torch ->
 flax layout). ``state_dict_from_jax`` runs both backwards: from a flax
 variables tree (numpy leaves) to a state_dict with the reference KVNET's
-keys, which the port's ``KVNet`` loads with ``load_state_dict(strict=True)``.
-``build_name_map`` and its two helpers are a copy of the JAX module's
-(``neuralrgbd_tpu/utils/torch_import.py:26-106``), held equal to it by
-``tests/test_torch_standalone.py``: the port imports nothing of the JAX
-package. So are ``_strip_prefix`` and ``load_torch_checkpoint``, which
+keys, which the port's ``KVNet`` loads with ``load_state_dict(strict=True)``,
+for every head: the default DPV head (with ``refine_dup`` the same keys at
+other shapes), DGF (``refine_net='DGF'``), ``refine_costv``'s ``d_net.*``
+and ``dnet_bayes`` (no ``kv_net.*``). ``refine_head_state_dict_from_jax``
+does the same for a standalone legacy head (``models/refine_legacy.py``)
+with ``build_refine_head_map``'s bare keys.
+``build_name_map``, ``build_refine_head_map`` and their two helpers are
+copies of the JAX module's (``neuralrgbd_tpu/utils/torch_import.py:26-156``),
+held equal to it by ``tests/test_torch_standalone.py``: the port imports
+nothing of the JAX package. So are ``_strip_prefix`` and ``load_torch_checkpoint``, which
 read the reference's released checkpoints (``kvnet_scannet.tar``);
 ``load_reference_state_dict`` loads one into the port's ``KVNet``.
 """
@@ -105,6 +110,56 @@ def build_name_map(refine_net: str = "DPV") -> dict[str, tuple[str, str]]:
     return m
 
 
+def build_refine_head_map(head: str) -> dict[str, tuple[str, str]]:
+    """Name map for a STANDALONE legacy refine head's bare state_dict
+    (models/refine_legacy.py vs Refine.py:135-585). ``head`` in
+    {'unet2d', 'demon', '3d', '3d_nearest', 'unet3d_res', 'unet3d'}."""
+    m: dict[str, tuple[str, str]] = {}
+
+    def convbn3(tp, fp):
+        m[f"{tp}.0.0.weight"] = (f"{fp}/conv/kernel", "conv3d")
+        m[f"{tp}.0.0.bias"] = (f"{fp}/conv/bias", "copy")   # _bias variant
+        m[f"{tp}.0.1.weight"] = (f"{fp}/bn/scale", "copy")
+        m[f"{tp}.0.1.bias"] = (f"{fp}/bn/bias", "copy")
+
+    if head in ("unet2d", "demon"):
+        m.update(_conv_bias("conv0.0", "conv0"))
+        if head == "unet2d":
+            m.update(_conv_bias("conv0_1.0", "conv0_1"))
+        for name in ("conv1", "conv1_1", "conv2", "conv2_1", "conv3"):
+            m.update(_conv_bias(f"{name}.0", f"core/{name}"))
+        for name in ("trans_conv0", "trans_conv1"):
+            m[f"{name}.0.weight"] = (f"core/{name}/kernel", "deconv2d")
+            m[f"{name}.0.bias"] = (f"core/{name}/bias", "copy")
+        m.update(_conv_bias("conv3_1", "core/conv3_1"))
+        return m
+
+    if head in ("3d", "3d_nearest"):
+        for name in ("conv1", "conv2", "conv3", "conv4"):
+            convbn3(name, name)
+        if head == "3d":
+            for name in ("conv5", "conv6"):
+                m[f"{name}.0.weight"] = (f"{name}/kernel", "deconv3d")
+                m[f"{name}.1.weight"] = (f"{name}_bn/scale", "copy")
+                m[f"{name}.1.bias"] = (f"{name}_bn/bias", "copy")
+        else:  # Sequential(Upsample, convbn_3d) -> index 1
+            for name in ("conv5", "conv6"):
+                m[f"{name}.1.0.weight"] = (f"{name}/conv/kernel", "conv3d")
+                m[f"{name}.1.1.weight"] = (f"{name}/bn/scale", "copy")
+                m[f"{name}.1.1.bias"] = (f"{name}/bn/bias", "copy")
+        convbn3("classif1", "classif1_0")
+        m["classif1.2.weight"] = ("classif1_1/kernel", "conv3d")
+        return m
+
+    if head in ("unet3d_res", "unet3d"):
+        for name in ("conv1", "conv2", "conv3", "conv4", "conv5",
+                     "conv5_r", "conv6", "conv6_r", "conv7"):
+            convbn3(name, name)
+        return m
+
+    raise ValueError(head)
+
+
 def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
     flat = {}
     for key, val in tree.items():
@@ -126,6 +181,8 @@ def _to_torch_layout(arr: np.ndarray, kind: str) -> np.ndarray:
         return arr.transpose(4, 3, 0, 1, 2)
     if kind == "deconv2d":      # flipped (kh, kw, I, O) -> (I, O, kh, kw)
         return arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+    if kind == "deconv3d":      # flipped (kd, kh, kw, I, O) -> (I, O, kd, kh, kw)
+        return arr.transpose(3, 4, 0, 1, 2)[:, :, ::-1, ::-1, ::-1]
     raise ValueError(f"no torch layout for {kind}")
 
 
@@ -133,16 +190,32 @@ def state_dict_from_jax(variables, refine_net: str = "DPV"
                         ) -> dict[str, torch.Tensor]:
     """Flax variables (``{"params": ...}`` or the params tree itself, numpy
     leaves) -> torch state_dict with the reference KVNET's keys.
+    ``refine_net``: the head the variables were built with ('DPV', also
+    under ``refine_dup``, or 'DGF'); ``refine_costv`` and ``dnet_bayes``
+    need no argument (their keys are mapped, or absent, either way).
 
     Raises if a flax parameter has no torch key, so nothing is dropped.
     One state_dict serves every setting of the inference deviations
     (``knet_coarse_d``, ``fe_per_frame_bn`` with cached features, ``dtype``):
     none of them adds a parameter, in JAX or in the port.
     """
+    return _state_dict_with_map(variables, build_name_map(refine_net))
+
+
+def refine_head_state_dict_from_jax(variables, head: str
+                                    ) -> dict[str, torch.Tensor]:
+    """Flax variables of a legacy refine head (``neuralrgbd_tpu/models/
+    refine_legacy.py``) -> the bare state_dict of the port's head of the
+    same kind (``models/refine_legacy.py``); ``head`` as for
+    ``build_refine_head_map``. Raises on an unmapped flax parameter."""
+    return _state_dict_with_map(variables, build_refine_head_map(head))
+
+
+def _state_dict_with_map(variables, name_map) -> dict[str, torch.Tensor]:
     params = variables.get("params", variables)
     flat = _flatten(params)
     sd, used = {}, set()
-    for tkey, (fkey, kind) in build_name_map(refine_net).items():
+    for tkey, (fkey, kind) in name_map.items():
         if fkey in flat:
             arr = _to_torch_layout(flat[fkey], kind).astype(np.float32)
             sd[tkey] = torch.from_numpy(np.ascontiguousarray(arr))
@@ -170,7 +243,7 @@ def load_torch_checkpoint(path: str):
 
 def load_reference_state_dict(model: torch.nn.Module, state_dict) -> dict:
     """Load a reference KVNET state_dict (tensors or arrays) into the port's
-    ``KVNet``, strictly.
+    ``KVNet``, strictly, whatever its head (the keys are the model's own).
 
     The keys are filtered as the JAX importer filters them
     (``neuralrgbd_tpu/utils/torch_import.py:242-247``): ``module.`` and

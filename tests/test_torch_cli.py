@@ -18,7 +18,8 @@ lines equal in keys and within rtol 1e-3. Also: the loader raises on a
 state_dict that leaves a parameter unloaded or has a wrong shape, and the
 options the port does not have raise ``NotImplementedError``
 (``--cache_features`` and ``--knet_coarse_d`` run:
-``tests/test_torch_flags_e2e.py``).
+``tests/test_torch_flags_e2e.py``; ``--refine_net DGF``:
+``tests/test_torch_heads.py``).
 """
 
 import json
@@ -145,10 +146,9 @@ def test_loader_raises_on_a_wrong_shape(variables, state_dict):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--refine_net", "DGF"],
     ["--multi_device", "--traj_idx", "0", "1"],
     ["--model_path", "orbax_checkpoint_dir"],
-], ids=["dgf", "multi_device", "orbax"])
+], ids=["multi_device", "orbax"])
 def test_unported_options_raise(run, extra):
     argv = [a for a in run["common"] if not a.endswith(".tar")]
     argv.remove("--model_path")

@@ -134,19 +134,6 @@ def test_step_outputs_are_distributions(weights):
 
 
 @pytest.mark.parametrize("change", [
-    {"refine_net": "DGF"}, {"refine_costv": True}, {"dnet_bayes": True},
-    {"refine_dup": True}])
-def test_deferred_options_raise(change):
-    import dataclasses
-
-    cfg = dataclasses.replace(CFG, **change)
-    with pytest.raises(NotImplementedError):
-        KVNet(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_infer_step(cfg)
-
-
-@pytest.mark.parametrize("change", [
     {"knet_coarse_d": 2}, {"fe_per_frame_bn": True}, {"dtype": "bfloat16"}])
 def test_ported_options_run(weights, change):
     """The deviations of the JAX KVNet build and step on the bridged

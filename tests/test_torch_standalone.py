@@ -8,7 +8,8 @@ its model is built on the card unless the caller asks for the CPU.
 - ``neuralrgbd_tpu_torch.data.synthetic.synthetic_batch``: array for array
   equal to the original at two seeds;
 - ``neuralrgbd_tpu_torch.utils.torch_import.build_name_map``: dict-equal
-  for the 'DPV' and 'DGF' heads;
+  for the 'DPV' and 'DGF' heads; ``build_refine_head_map`` for each of the
+  six legacy refine heads;
 - the data layer and export: ``ops.camera.rescale_K`` and
   ``intrinsics_for_size``; ``data.preprocess`` on one image and one depth
   file; the scene writers of ``data.synthetic``, byte for byte on 4-frame
@@ -56,6 +57,8 @@ from neuralrgbd_tpu.config import TrainConfig as JTrainConfig
 from neuralrgbd_tpu.data.synthetic import synthetic_batch as jsynthetic_batch
 from neuralrgbd_tpu.data.trajectory import window_batch as jwindow_batch
 from neuralrgbd_tpu.utils.torch_import import build_name_map as jbuild_name_map
+from neuralrgbd_tpu.utils.torch_import import \
+    build_refine_head_map as jbuild_refine_head_map
 
 import neuralrgbd_tpu_torch.data.augment as augment
 import neuralrgbd_tpu_torch.data.batch_loader as batch_loader
@@ -72,7 +75,8 @@ from neuralrgbd_tpu_torch.data.synthetic import synthetic_batch
 from neuralrgbd_tpu_torch.data.trajectory import window_batch
 from neuralrgbd_tpu_torch.infer.loop import resolve_cache_features
 from neuralrgbd_tpu_torch.models.kvnet import KVNet
-from neuralrgbd_tpu_torch.utils.torch_import import build_name_map
+from neuralrgbd_tpu_torch.utils.torch_import import (build_name_map,
+                                                     build_refine_head_map)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "neuralrgbd_tpu_torch").rglob("*.py"))
@@ -118,6 +122,12 @@ def test_synthetic_batch_copy_equals_original(seed):
 @pytest.mark.parametrize("refine_net", ["DPV", "DGF"])
 def test_build_name_map_copy_equals_original(refine_net):
     assert build_name_map(refine_net) == jbuild_name_map(refine_net)
+
+
+@pytest.mark.parametrize("head", ["unet2d", "demon", "3d", "3d_nearest",
+                                  "unet3d_res", "unet3d"])
+def test_build_refine_head_map_copy_equals_original(head):
+    assert build_refine_head_map(head) == jbuild_refine_head_map(head)
 
 
 def assert_trees_equal(got, want, where=""):

@@ -456,8 +456,6 @@ def test_l1_train_step_runs(variables, group_batches):
 
 
 def test_unported_heads_and_single_refine_raise():
-    with pytest.raises(NotImplementedError, match="refine_dup"):
-        make_train_step(ModelConfig(**SMALL, refine_dup=True), TCFG)
     with pytest.raises(ValueError, match="single_refine"):
         create_train_state(CFG, TCFG, model=KVNet(CFG, device="cpu",
                                                   single_refine=True))
@@ -635,9 +633,6 @@ def test_train_cli_options_the_port_lacks_raise(scene_root, tmp_path):
     with pytest.raises(NotImplementedError, match="multi_device"):
         port_train_cli.main(train_argv(scene_root, tmp_path, 1,
                                        "--multi_device"))
-    with pytest.raises(NotImplementedError, match="refine_dup"):
-        port_train_cli.main(train_argv(scene_root, tmp_path, 1,
-                                       "--refine_dup"))
 
 
 def test_train_cli_runs_on_the_card_by_default(scene_root, tmp_path):
