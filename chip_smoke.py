@@ -159,11 +159,33 @@ Phases, each printing its own lines:
    ``refine_costv``, twice: the loss finite and falling, the runs equal
    bit for bit, ms per step and peak memory; ``cli.train_kvnet
    --refine_dup`` for 2 steps; and the six legacy refine heads on the
-   card vs the CPU (same weights, fp32) at the DPV grid, with their ms.
+   card vs the CPU (same weights, fp32) at the DPV grid, with their ms;
+23. lockstep trajectories on one card (``infer.loop.
+   run_trajectories_parallel``): three ``write_plane_scene``s of 24, 20
+   and 16 frames, the second with a non-finite pose at its frame 9: the
+   per-lane counts (the valid windows), one step call per lockstep frame
+   with N sweep launches for its N active lanes and 1 prediction launch,
+   each lane's maps and images equal bit for bit to its own
+   ``run_trajectory`` (the same frames in ``scene_path_info.txt``,
+   numbered by JAX's two conventions, under JAX's lockstep header), a second run equal to the first,
+   0 main-thread host syncs, ``cli.test_kvnet --multi_device --traj_idx 0
+   1`` on phase 14's ``.tar`` equal to the function's lanes; then ms per
+   lockstep frame at N = 1, 2 and 4 equal 12-frame lanes against N single
+   runs, in turns, twice (CUDA events after each step);
+24. data-parallel training (``parallel.make_sharded_train_step``) through
+   ``dryrun_dp_torch.certify``: 2 ``gloo`` ranks of one lane each, both
+   processes on the one card, against the one-process 2-lane step on the
+   same batch at the operating point: the loss within rel 1e-4, the
+   parameters within 3 lr, the summed gradient within rel 1e-5, the
+   carry's losses within rel 1e-3 (and whether bit for bit), both ranks'
+   final parameters equal, the 3-step carry's loss falling, one prediction
+   launch per step per rank, each rank's ms per step and peak memory.
+   A rank that fails to start or run fails the phase.
 
 Then one ``{"kernels": [...]}`` line (the conv kernel's launches: phase
 10's, phase 17's and phase 22's fast path; the sweep's and the
-resample's add phases 19-22) and, last, the ``{"ok": true, ...}`` line. Any failed check exits non-zero before those two lines. A kernel's
+resample's add phases 19-24, phase 24's counted in the rank processes)
+and, last, the ``{"ok": true, ...}`` line. Any failed check exits non-zero before those two lines. A kernel's
 ``ms`` in that line is its ``device_ms``. Every
 kernel's ``bound_ms`` is computed here from the shapes it was timed at:
 the larger of its bytes (each input read once, each output written once)
@@ -331,6 +353,14 @@ TRAIN_HEAD_STEPS = 3
 # another order (cuDNN and oneDNN) through up to 10 layers with batch-
 # statistics BatchNorm; max |difference| over the output's max |value|.
 LEGACY_TOL = 1e-4
+# Phase 23: lockstep lanes (``run_trajectories_parallel``) on one card. The
+# lanes' scenes are ragged, so lanes drop out; lane 1's frame 9 gets a
+# non-finite pose, so its lane skips 5 windows and resets its carry. The
+# timing lanes are equal (7 lockstep frames each), at N of them.
+LOCK_FRAMES = (24, 20, 16)
+LOCK_INVALID = (1, 9)
+TIME_FRAMES = 12
+TIME_LANES = (1, 2, 4)
 
 failures: list[str] = []
 
@@ -2774,6 +2804,228 @@ def legacy_heads(device) -> None:
               f"{start.elapsed_time(end) / 5:.3f} ms on {CARD[0]}")
 
 
+class LaunchProbe:
+    """Wraps ``make_infer_step`` where ``module`` calls it and records, for
+    each step call, its lanes and the sweep and prediction kernels'
+    launches inside it (the counters are host-side: no sync)."""
+
+    def __init__(self, module):
+        self.module, self.make = module, module.make_infer_step
+        self.calls: list[tuple[int, int, int]] = []
+
+    def __enter__(self):
+        def make(*args, **kwargs):
+            step = self.make(*args, **kwargs)
+
+            def counted(model, batch, bv_predict, bv_valid, *rest):
+                b1, b2 = ksweep.launches, kresample.launches
+                out = step(model, batch, bv_predict, bv_valid, *rest)
+                self.calls.append((len(bv_valid), ksweep.launches - b1,
+                                   kresample.launches - b2))
+                return out
+            return counted
+
+        self.module.make_infer_step = make
+        return self
+
+    def __exit__(self, *exc):
+        self.module.make_infer_step = self.make
+
+
+def write_lanes(root: str, lengths, first_idx: int = 0,
+                invalid=None) -> list:
+    """``write_plane_scene``s of ``lengths`` frames under one root (scene
+    indices from ``first_idx``), frame ``invalid[1]`` of lane
+    ``invalid[0]`` given a non-finite pose; their trajectories."""
+    for k, n in enumerate(lengths):
+        write_plane_scene(root, first_idx + k, n_frames=n)
+    if invalid is not None:
+        lane, frame = invalid
+        with open(os.path.join(root, f"scene{first_idx + lane:04d}_00",
+                               f"frame-{5 * frame:06d}.pose.txt"), "w") as f:
+            f.write(" ".join(["nan"] * 16) + "\n")
+    return [make_trajectory(k, 5, root, img_size_wh=IMG_HW[::-1],
+                            d_candi=CFG.d_candi) for k in range(len(lengths))]
+
+
+def valid_windows(traj) -> int:
+    """The windows of ``traj`` whose poses are all finite: its exports."""
+    r = CFG.t_win_r
+    ok = [bool(np.isfinite(traj.pose_loader(i)).all())
+          for i in range(len(traj))]
+    return sum(all(ok[ref - r:ref + r + 1])
+               for ref in range(r, len(traj) - r - 1))
+
+
+def info_rows(res_dir: str) -> list[list[str]]:
+    with open(os.path.join(res_dir, "scene_path_info.txt")) as f:
+        return [ln.split("  ") for ln in f.read().splitlines()]
+
+
+def same_files(a: str, b: str, names) -> bool:
+    return all(open(os.path.join(a, n), "rb").read()
+               == open(os.path.join(b, n), "rb").read() for n in names)
+
+
+def phase_lockstep(model, device, loop_info: dict, tmp: str) -> dict:
+    n = len(LOCK_FRAMES)
+    print(f"phase 23: {n} trajectories in lockstep on one card "
+          f"(run_trajectories_parallel), write_plane_scenes of "
+          f"{LOCK_FRAMES} frames at {IMG_HW[1]}x{IMG_HW[0]}, lane "
+          f"{LOCK_INVALID[0]}'s frame {LOCK_INVALID[1]} with a non-finite "
+          f"pose", flush=True)
+    root = os.path.join(tmp, "lockstep")
+    trajs = write_lanes(root, LOCK_FRAMES, invalid=LOCK_INVALID)
+    dirs = [os.path.join(tmp, "lock", f"lane{i}") for i in range(n)]
+    reset_launches()
+    with LaunchProbe(loop_mod) as probe:
+        counts = loop_mod.run_trajectories_parallel(model, CFG, trajs, dirs,
+                                                    verbose=False)
+    launches = read_launches()
+    want = [valid_windows(t) for t in trajs]
+    frames = max(LOCK_FRAMES) - 2 * CFG.t_win_r - 1
+    check(counts == want, f"per-lane exported frames {counts} (the valid "
+          f"windows: {want})")
+    lanes = [c[0] for c in probe.calls]
+    check(len(probe.calls) == frames and all(
+        b1 == k and b2 == 1 for k, b1, b2 in probe.calls),
+          f"one step call per lockstep frame ({len(probe.calls)} for "
+          f"{frames}), each with N sweep launches for its N active lanes "
+          f"and 1 prediction launch: lanes per frame {lanes}")
+    check(launches == {"sweep_fused": sum(counts), "resample": frames,
+                       "conv3d": 0},
+          f"launches in the lockstep run: {launches}")
+
+    # each lane alone through run_trajectory: the same frames, bit for bit
+    for i, traj in enumerate(trajs):
+        solo = os.path.join(tmp, "lock_solo", f"lane{i}")
+        got = loop_mod.run_trajectory(model, CFG, traj, solo, verbose=False)
+        a, b = info_rows(dirs[i]), info_rows(solo)
+        names = [(f"{k}_{int(ra[0]):05d}.{e}", f"{k}_{int(rb[0]):05d}.{e}")
+                 for ra, rb in zip(a[1:], b[1:])
+                 for k, e in (("d", "pgm"), ("conf", "pgm"), ("img", "png"))]
+        equal = len(a) == len(b) and all(
+            open(os.path.join(dirs[i], x), "rb").read()
+            == open(os.path.join(solo, y), "rb").read() for x, y in names)
+        check(got == counts[i] and a[0] == list(b[0][0])
+              and [r[1] for r in a[1:]] == [r[1] for r in b[1:]] and equal,
+              f"lane {i}: {counts[i]} frames, its maps and images equal bit "
+              f"for bit to run_trajectory's alone ({got} frames), "
+              f"scene_path_info.txt JAX's lockstep header (the name's "
+              f"characters two spaces apart) and the same frames (numbered "
+              f"0..{counts[i] - 1} in lockstep, "
+              f"{[int(r[0]) for r in b[1:]][-1] if len(b) > 1 else '-'} "
+              f"last alone: JAX's row_counts and frame_cnt)")
+
+    # run to run, and the main thread's host syncs per lockstep frame
+    again = [os.path.join(tmp, "lock_again", f"lane{i}") for i in range(n)]
+    sites = sync_sites(lambda: loop_mod.run_trajectories_parallel(
+        model, CFG, trajs, again, verbose=False))
+    check(all(same_files(a, b, os.listdir(a)) for a, b in zip(dirs, again)),
+          "a second lockstep run writes the same files, bit for bit")
+    n_sync = sum(sites.values())
+    check(n_sync == 0, f"the main thread's host syncs in one lockstep run of "
+          f"{frames} frames: {n_sync} ({n_sync / frames:.2f} per frame) "
+          f"{list(sites)[:3]}")
+
+    # the CLI with --multi_device on lanes 0 and 1, from phase 14's .tar
+    reset_launches()
+    _, out = quiet(cli_test_kvnet.main, loop_args(
+        root, loop_info["ckpt"], os.path.join(tmp, "lock_cli"))
+        + ["--multi_device", "--traj_idx", "0", "1"])
+    cli_launches = read_launches()
+    printed = [ln for ln in out.splitlines() if ln.startswith("trajectory")]
+    cli_dirs = [os.path.join(tmp, "lock_cli", f"loop_{i}") for i in range(2)]
+    check(printed == [f"trajectory {i}: exported {counts[i]} frames"
+                      for i in range(2)]
+          and all(same_files(c, d, os.listdir(d))
+                  for c, d in zip(cli_dirs, dirs[:2]))
+          and cli_launches["resample"] == frames
+          and cli_launches["sweep_fused"] == sum(counts[:2]),
+          f"cli.test_kvnet --multi_device --traj_idx 0 1: {printed}, each "
+          f"lane's files those of run_trajectories_parallel, launches "
+          f"{cli_launches}")
+    for k in launches:
+        launches[k] += cli_launches[k]
+
+    # ms per lockstep frame at N lanes against N single runs, in turns
+    troot = os.path.join(tmp, "lockstep_time")
+    ttrajs = write_lanes(troot, (TIME_FRAMES,) * max(TIME_LANES))
+    times = {N: {"lockstep": [], "singles": []} for N in TIME_LANES}
+    for turn in range(2):
+        for N in TIME_LANES:
+            with StepProbe(loop_mod) as p:
+                loop_mod.run_trajectories_parallel(
+                    model, CFG, ttrajs[:N],
+                    [os.path.join(tmp, "lt", f"{turn}_{N}_{i}")
+                     for i in range(N)], verbose=False)
+            times[N]["lockstep"].append(statistics.median(p.frame_ms()[1:]))
+            single = 0.0
+            for i, traj in enumerate(ttrajs[:N]):
+                with StepProbe(loop_mod) as p:
+                    loop_mod.run_trajectory(
+                        model, CFG, traj,
+                        os.path.join(tmp, "ls", f"{turn}_{N}_{i}"),
+                        verbose=False)
+                single += statistics.median(p.frame_ms()[1:])
+            times[N]["singles"].append(single)
+    for N, t in times.items():
+        lock, single = t["lockstep"], t["singles"]
+        print(f"  {CARD[0]}: N={N}: lockstep {statistics.median(lock):.3f} "
+              f"ms per lockstep frame (turns {' / '.join(f'{x:.3f}' for x in lock)}"
+              f"), {N} single run(s) {statistics.median(single):.3f} ms per "
+              f"frame of all {N} (turns "
+              f"{' / '.join(f'{x:.3f}' for x in single)}); "
+              f"{statistics.median(lock) / N:.3f} ms per lane-frame in "
+              f"lockstep (CUDA events after each step, median of frames 2 "
+              f"on)", flush=True)
+    return launches
+
+
+def phase_dp(device) -> dict:
+    import dryrun_dp_torch
+
+    print(f"phase 24: data-parallel training, 2 gloo ranks of one lane each, "
+          f"both on {device} (dryrun_dp_torch), at {IMG_HW[1]}x{IMG_HW[0]} "
+          f"D={CFG.ndepth}, fp32, Adam at lr {dryrun_dp_torch.LR}", flush=True)
+    launches = {k: 0 for k in KERNELS}
+    torch.cuda.empty_cache()
+    try:
+        res = dryrun_dp_torch.certify(2, device="cuda", config="op",
+                                      timeout=400)
+    except Exception as exc:
+        check(False, f"the 2-rank DP step ran on the card: {exc}")
+        return launches
+    print(f"  {dryrun_dp_torch.describe(res)}", flush=True)
+    check(res["dloss"] < 1e-4 and res["dparam"] < 3 * dryrun_dp_torch.LR
+          and res["dgrad"] < dryrun_dp_torch.GRAD_RTOL
+          and res["dlosses"] < dryrun_dp_torch.CARRY_RTOL,
+          f"DP step vs the one-process 2-lane step: loss rel "
+          f"{res['dloss']:.2e} (< 1e-4), parameters max |diff| "
+          f"{res['dparam']:.2e} (< 3 lr), summed gradient rel "
+          f"{res['dgrad']:.2e} (< {dryrun_dp_torch.GRAD_RTOL:.0e}), the "
+          f"carry's losses rel {res['dlosses']:.2e} (< "
+          f"{dryrun_dp_torch.CARRY_RTOL:.0e}); bit for bit: "
+          f"{'yes' if res['bitwise'] else 'no'}")
+    losses = res["losses"]
+    check(res["replicas_equal"] and losses[3] < losses[1] * 1.02,
+          f"both ranks end with the same parameters; the 3-step carry's "
+          f"loss falls: {' -> '.join(f'{x:.4f}' for x in losses)}")
+    check(res["resample_launches"] == [4, 4],
+          f"each rank's 4 steps launch the prediction kernel once each: "
+          f"{res['resample_launches']}")
+    for r, (ms, peak) in enumerate(zip(res["ms"], res["peak_gib"])):
+        print(f"  {CARD[0]}: rank {r}: ms per carry step "
+              f"{' / '.join(f'{x:.1f}' for x in ms)} (host clock ending in "
+              f"a sync; both ranks share the card), peak memory "
+              f"{peak:.2f} GiB", flush=True)
+    print(f"  {CARD[0]}: the one-process 2-lane step: ms per carry step "
+          f"{' / '.join(f'{x:.1f}' for x in res['ref_ms'])}, peak memory "
+          f"{res['ref_peak_gib']:.2f} GiB", flush=True)
+    launches["resample"] = sum(res["resample_launches"])
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     device = phase_device()
@@ -2803,7 +3055,9 @@ def main() -> int:
         for path in (phase_train(device, loop_info, tmp),
                      phase_kitti(device, tmp, errs),
                      phase_lba(device, loop_info, tmp, errs),
-                     phase_heads(model, device, loop_info, tmp)):
+                     phase_heads(model, device, loop_info, tmp),
+                     phase_lockstep(model, device, loop_info, tmp),
+                     phase_dp(device)):
             for name, n in path.items():
                 launches[name] += n
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of command "

@@ -1,0 +1,423 @@
+#!/usr/bin/env python3
+"""Certify the port's data-parallel train step on ``torch.distributed``:
+the counterpart of ``__graft_entry__.dryrun_multichip`` for
+``neuralrgbd_tpu_torch.parallel.make_sharded_train_step``.
+
+    python3 dryrun_dp_torch.py                    # 2 and 4 gloo ranks, CPU
+    python3 dryrun_dp_torch.py --ranks 4 --invalid_lane 1 --grad_clip 0.5
+    python3 dryrun_dp_torch.py --ranks 2 --device cuda --config op
+    python3 dryrun_dp_torch.py --cli --ranks 4 --device cuda --config op
+
+Each rank is a process of its own (this file with ``--worker``), joined
+over ``tcp://localhost`` with the ``gloo`` backend (chosen here, on the
+CPU and on the card alike: NCCL needs one card per rank). Every rank
+builds the same seeded state and steps its block of a ``synthetic_batch``
+of ``ranks x lanes_per_rank`` lanes; the one-process step over the whole
+batch runs in this process first. At JAX's tiny configuration by default
+(feature_dim 16, D=8, 32x48; ``--config op`` is the reference operating
+point) the certificate is JAX's:
+
+1. the first step's loss within rel 1e-4 of the one-process step's;
+2. every parameter within 3 lr of it (one Adam step moves a parameter by
+   at most lr, and a summation-order flip on a near-zero gradient can
+   flip that step's sign);
+3. over a 3-step carry, each lane's carry valid where its window is, the
+   loss falls: ``losses[3] < losses[1] * 1.02``;
+
+and, since 2 holds for any gradient (Adam's first step is lr g / (|g| +
+eps)), two that hold the reduction itself:
+
+4. the first step's summed gradient, every tensor within rel
+   ``GRAD_RTOL`` (of the tensor's largest element) of the one-process
+   step's;
+5. every loss of the carry within rel ``CARRY_RTOL`` of the one-process
+   step's.
+
+Also printed: whether the DP step equals the one-process step bit for bit,
+that every rank ends with the same parameters (bit for bit), each rank's
+ms per carry step and, on the card, its peak memory. ``--invalid_lane i``
+marks lane i invalid, so the ranks hold different numbers of valid lanes.
+
+``--cli`` certifies the train CLI instead (``certify_cli``): ``cli.
+train_kvnet`` for 3 steps as one process and as ``--ranks``
+processes in torchrun's environment with ``--multi_device`` (gloo on the
+CPU; on the card NCCL, one card a rank), on ``--ranks`` 12-frame
+``write_plane_scene``s at ``--batch_size`` ranks. It holds the Adam first
+moment after step 1 (0.1 x the summed gradient) within rel ``GRAD_RTOL``
+of the one-process CLI's, and prints the last checkpoints' distance and
+each run's wall time from process start to exit.
+
+Exits non-zero if any certificate fails; every rank process is stopped.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import socket
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+LR = 1e-4
+CARRY_STEPS = 3
+# the per-lane gradients are the same computation in both programs; only
+# the order in which the ranks' sums add differs (a few ulps of the sum)
+GRAD_RTOL = 1e-5
+# after the first update the two programs' parameters differ where a
+# rounding flipped a near-zero gradient's sign (Adam moves it 2 lr); on the
+# CPU the carry's losses then lie up to 6.4e-5 apart, and 0.16 and more
+# with one rank's gradient dropped from the sum
+CARRY_RTOL = 1e-3
+
+
+def configs():
+    """name -> (ModelConfig, image (H, W))."""
+    from neuralrgbd_tpu_torch.config import ModelConfig
+
+    return {"tiny": (ModelConfig(feature_dim=16, kv_feature_dim=16, ndepth=8,
+                                 d_min=0.5, d_max=4.0), (32, 48)),
+            "op": (ModelConfig(), (256, 384))}
+
+
+def problem(config: str, n_lanes: int, invalid_lane: int, pose_noise: float,
+            grad_clip: float | None):
+    """``(cfg, tcfg, batch_np)``: a seeded labelled ``synthetic_batch``,
+    lane ``invalid_lane`` (if >= 0) marked invalid."""
+    from neuralrgbd_tpu_torch.config import TrainConfig
+    from neuralrgbd_tpu_torch.data.synthetic import synthetic_batch
+
+    cfg, img_hw = configs()[config]
+    tcfg = TrainConfig(lr=LR, pose_noise_level=pose_noise,
+                       grad_clip_max=grad_clip)
+    batch, _ = synthetic_batch(cfg, n_lanes=n_lanes, img_hw=img_hw, seed=0)
+    del batch["dmap_up4_imgsize_digit"]
+    if invalid_lane >= 0:
+        batch["lane_valid"][invalid_lane] = False
+    return cfg, tcfg, batch
+
+
+def drive(cfg, tcfg, batch_np: dict, step, device) -> dict:
+    """One step from a uniform, invalid carry, then ``CARRY_STEPS`` steps
+    on the carry of the one before: the losses, the gradients the first
+    step applied (summed over the ranks, clipped), the parameters after
+    the first step and at the end, each carry step's ms (host clock ending in
+    a sync), the prediction kernel's launches, the peak memory."""
+    from neuralrgbd_tpu_torch.ops.cuda import resample as kresample
+    from neuralrgbd_tpu_torch.train.loop import upload_batch
+    from neuralrgbd_tpu_torch.train.step import create_train_state
+
+    device = torch.device(device)
+    state = create_train_state(cfg, tcfg, device=device)
+    n = len(batch_np["lane_valid"])
+    block = step.lane_block(n)
+    lane_valid = batch_np["lane_valid"]
+    batch = upload_batch(batch_np, device, block)
+    h, w = batch_np["dmap_digit"].shape[1:]
+    D = cfg.ndepth
+    carry = torch.full((len(range(n)[block]), D, h, w), -np.log(D),
+                       dtype=torch.float32, device=device)
+    generator = torch.Generator(device=device).manual_seed(tcfg.seed)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    launches = kresample.launches
+    out = step(state, batch, carry, np.zeros(n, bool)[block], generator)
+    losses = [out.loss]
+    params1 = {k: p.detach().cpu().clone()
+               for k, p in state.model.named_parameters()}
+    grads1 = {k: p.grad.detach().cpu().clone()
+              for k, p in state.model.named_parameters()}
+    ms = []
+    for _ in range(CARRY_STEPS):
+        t0 = time.perf_counter()
+        out = step(state, batch, out.bv_predict, lane_valid[block].copy(),
+                   generator)
+        if cuda:
+            torch.cuda.synchronize(device)
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(out.loss)
+    return {"losses": [float(x) for x in losses], "params1": params1,
+            "grads1": grads1,
+            "params": {k: p.detach().cpu().clone()
+                       for k, p in state.model.named_parameters()},
+            "ms": ms, "resample_launches": kresample.launches - launches,
+            "peak_gib": (torch.cuda.max_memory_allocated(device) / 2**30
+                         if cuda else None)}
+
+
+def worker(args) -> None:
+    """One rank: join the group, drive the DP step, save the results."""
+    import torch.distributed as dist
+
+    from neuralrgbd_tpu_torch.parallel import make_sharded_train_step
+
+    if args.device == "cpu":
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:"
+                            f"{args.port}", world_size=args.world,
+                            rank=args.rank)
+    try:
+        cfg, tcfg, batch = problem(args.config, args.world * args.lanes_per_rank,
+                                   args.invalid_lane, args.pose_noise,
+                                   args.grad_clip)
+        result = drive(cfg, tcfg, batch, make_sharded_train_step(cfg, tcfg),
+                       args.device)
+        torch.save(result, os.path.join(args.out, f"rank{args.rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(cmds: list, envs: list, timeout: float) -> list:
+    """Start one process per command, wait for all, return their outputs;
+    every process is stopped on the way out. Raises if one fails."""
+    procs = [subprocess.Popen(cmd, env=env, cwd=REPO, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd, env in zip(cmds, envs)]
+    try:
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode]
+    if failed:
+        raise RuntimeError(f"process(es) failed {failed}:\n"
+                           + "\n".join(logs[r][-3000:] for r, _ in failed))
+    return logs
+
+
+def repo_env(**extra) -> dict:
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]), **extra)
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def rel_err(got: dict, want: dict) -> float:
+    """The largest, over the tensors of ``want``, of max |got - want| /
+    max |want| (0 where both are 0, inf where only ``want`` is)."""
+    worst = 0.0
+    for k, w in want.items():
+        diff = float((got[k].float() - w.float()).abs().max())
+        if diff:
+            scale = float(w.float().abs().max())
+            worst = max(worst, diff / scale if scale else float("inf"))
+    return worst
+
+
+def certify(ranks: int, device: str = "cpu", config: str = "tiny",
+            lanes_per_rank: int = 1, invalid_lane: int = -1,
+            pose_noise: float = 0.0, grad_clip: float | None = None,
+            timeout: float = 600.0) -> dict:
+    """Run the one-process step here, then ``ranks`` gloo ranks of the DP
+    step on the same batch (each a process on ``device``); returns the
+    certificate's numbers and ``ok``. Raises if a rank fails or times out
+    (every rank process is stopped first)."""
+    from neuralrgbd_tpu_torch.train.step import make_train_step
+
+    n = ranks * lanes_per_rank
+    cfg, tcfg, batch = problem(config, n, invalid_lane, pose_noise, grad_clip)
+    ref = drive(cfg, tcfg, batch, make_train_step(cfg, tcfg), device)
+
+    with tempfile.TemporaryDirectory() as out:
+        cmd = [sys.executable, os.path.abspath(__file__), "--worker",
+               "--world", str(ranks), "--port", str(free_port()), "--out",
+               out, "--device", device, "--config", config,
+               "--lanes_per_rank", str(lanes_per_rank), "--invalid_lane",
+               str(invalid_lane), "--pose_noise", str(pose_noise)]
+        if grad_clip is not None:
+            cmd += ["--grad_clip", str(grad_clip)]
+        run_ranks([cmd + ["--rank", str(r)] for r in range(ranks)],
+                  [repo_env()] * ranks, timeout)
+        dp = [torch.load(os.path.join(out, f"rank{r}.pt")) for r in
+              range(ranks)]
+
+    rel = [abs(a - b) / max(abs(b), 1e-9)
+           for a, b in zip(dp[0]["losses"], ref["losses"])]
+    loss, want = dp[0]["losses"][0], ref["losses"][0]
+    dloss, dlosses = rel[0], max(rel)
+    dgrad = rel_err(dp[0]["grads1"], ref["grads1"])
+    dparam = max(float((a - ref["params1"][k]).abs().max())
+                 for k, a in dp[0]["params1"].items())
+    bitwise = loss == want and all(
+        torch.equal(a, ref["params1"][k]) and torch.equal(
+            dp[0]["grads1"][k], ref["grads1"][k])
+        for k, a in dp[0]["params1"].items())
+    replicas = all(torch.equal(r["params"][k], p)
+                   for r in dp[1:] for k, p in dp[0]["params"].items())
+    losses = dp[0]["losses"]
+    res = {
+        "ranks": ranks, "lanes": n, "device": device, "config": config,
+        "invalid_lane": invalid_lane, "dloss": dloss, "dparam": dparam,
+        "dgrad": dgrad, "dlosses": dlosses,
+        "bitwise": bitwise, "replicas_equal": replicas, "losses": losses,
+        "ref_losses": ref["losses"], "ms": [r["ms"] for r in dp],
+        "ref_ms": ref["ms"], "peak_gib": [r["peak_gib"] for r in dp],
+        "ref_peak_gib": ref["peak_gib"],
+        "resample_launches": [r["resample_launches"] for r in dp],
+    }
+    res["ok"] = bool(dloss < 1e-4 and dparam < 3 * LR and replicas
+                     and dgrad < GRAD_RTOL and dlosses < CARRY_RTOL
+                     and all(np.isfinite(losses))
+                     and losses[3] < losses[1] * 1.02)
+    return res
+
+
+def certify_cli(ranks: int, scenes: str, work: str, device: str = "cpu",
+                config: str = "tiny", steps: int = 2,
+                timeout: float = 600.0) -> dict:
+    """``cli.train_kvnet`` on the ScanNet-layout ``scenes``, ``steps``
+    steps at ``--batch_size ranks`` with a checkpoint a step, as one
+    process and as ``ranks`` processes in torchrun's environment with
+    ``--multi_device``, each run under ``work``. Returns the ranks'
+    outputs, ``dgrad`` (the Adam first moments after step
+    1, 0.1 x each run's summed gradient, as ``rel_err``), ``dparam`` (the
+    last checkpoints' largest parameter difference; bound ``steps`` x 3
+    lr), ``bitwise``, each run's wall time and ``ok``."""
+    small = ["--img_width", "96", "--img_height", "64", "--ndepth", "8",
+             "--feature_dim", "16", "--d_min", "0.5", "--d_max", "4.0"]
+
+    def argv(name, *extra):
+        return [sys.executable, "-m", "neuralrgbd_tpu_torch.cli.train_kvnet",
+                "--exp_name", "r", "--dataset", "scannet", "--dataset_path",
+                scenes, "--batch_size", str(ranks), "--max_steps", str(steps),
+                "--save_model_interv", "1", "--LR", str(LR), "--save_dir",
+                os.path.join(work, name), "--log_dir",
+                os.path.join(work, name + "_logs"), "--device", device,
+                *(small if config == "tiny" else []), *extra]
+
+    def checkpoint(name, step):
+        return torch.load(os.path.join(work, name, "r", f"ckpt_{step:08d}",
+                                       "state.pt"), weights_only=True)
+
+    def first_moments(ckpt):   # by the optimizer's parameter index
+        return {i: st["exp_avg"]
+                for i, st in ckpt["optimizer"]["state"].items()}
+
+    env = repo_env(OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    run_ranks([argv("one")], [env], timeout)
+    t1 = time.perf_counter()
+    tr = dict(env, WORLD_SIZE=str(ranks), MASTER_ADDR="localhost",
+              MASTER_PORT=str(free_port()))
+    logs = run_ranks([argv("dp", "--multi_device")] * ranks,
+                     [dict(tr, RANK=str(r), LOCAL_RANK=str(r))
+                      for r in range(ranks)], timeout)
+    t2 = time.perf_counter()
+    dgrad = rel_err(first_moments(checkpoint("dp", 1)),
+                    first_moments(checkpoint("one", 1)))
+    got, want = checkpoint("dp", steps)["model"], checkpoint("one",
+                                                             steps)["model"]
+    dparam = max(float((got[k] - v).abs().max()) for k, v in want.items())
+    res = {"ranks": ranks, "device": device, "config": config,
+           "steps": steps, "logs": logs, "dgrad": dgrad,
+           "dparam": dparam,
+           "bitwise": all(torch.equal(got[k], v) for k, v in want.items()),
+           "seconds": (t1 - t0, t2 - t1)}
+    res["ok"] = bool(dgrad < GRAD_RTOL and dparam < steps * 3 * LR)
+    return res
+
+
+def describe_cli(res: dict) -> str:
+    return (f"dryrun_dp_torch --cli ({res['ranks']} ranks, {res['config']}, "
+            f"{res['device']}, {res['steps']} steps) "
+            f"{'ok' if res['ok'] else 'FAILED'}: Adam first moment after "
+            f"step 1 rel {res['dgrad']:.2e} (bound {GRAD_RTOL:.0e}); last "
+            f"checkpoints max |diff| {res['dparam']:.3e} (bound "
+            f"{res['steps'] * 3 * LR:.0e}), bit for bit "
+            f"{'yes' if res['bitwise'] else 'no'}; wall time from process "
+            f"start to exit {res['seconds'][0]:.1f} s one process, "
+            f"{res['seconds'][1]:.1f} s {res['ranks']} ranks")
+
+
+def describe(res: dict) -> str:
+    inv = (f", lane {res['invalid_lane']} invalid"
+           if res["invalid_lane"] >= 0 else "")
+    return (f"dryrun_dp_torch({res['ranks']} ranks, {res['lanes']} lanes"
+            f"{inv}, {res['config']}, {res['device']}) "
+            f"{'ok' if res['ok'] else 'FAILED'}: losses "
+            + " -> ".join(f"{x:.4f}" for x in res["losses"])
+            + f" | DP-vs-single: dloss {res['dloss']:.2e} dparam "
+            f"{res['dparam']:.2e} (bound {3 * LR:.0e}) dgrad "
+            f"{res['dgrad']:.2e} (bound {GRAD_RTOL:.0e}) carry dloss "
+            f"{res['dlosses']:.2e} (bound {CARRY_RTOL:.0e}), bit for bit "
+            f"{'yes' if res['bitwise'] else 'no'} | ranks' parameters equal "
+            f"{'yes' if res['replicas_equal'] else 'NO'}")
+
+
+def cli_main(args) -> int:
+    from neuralrgbd_tpu_torch.data.synthetic import write_plane_scene
+
+    if args.device != "cpu":
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60).stdout.strip(), flush=True)
+    ok = True
+    for ranks in args.ranks:
+        with tempfile.TemporaryDirectory() as tmp:
+            scenes = os.path.join(tmp, "scenes")
+            for k in range(ranks):
+                write_plane_scene(scenes, k, n_frames=12)
+            res = certify_cli(ranks, scenes, tmp, args.device, args.config,
+                              CARRY_STEPS)
+        print(describe_cli(res), flush=True)
+        ok &= res["ok"]
+    return 0 if ok else 1
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--ranks", type=int, nargs="*", default=[2, 4])
+    p.add_argument("--lanes_per_rank", type=int, default=None,
+                   help="lanes per rank (default: 1, and 2 with an invalid "
+                        "lane)")
+    p.add_argument("--invalid_lane", type=int, default=None,
+                   help="mark this lane invalid (default: each rank count "
+                        "twice, clean and with lane 1 invalid: with 2 lanes "
+                        "per rank, rank 0 then holds 1 valid lane and the "
+                        "others 2)")
+    p.add_argument("--pose_noise", type=float, default=0.0)
+    p.add_argument("--grad_clip", type=float, default=None)
+    p.add_argument("--device", default="cpu")
+    p.add_argument("--config", default="tiny", choices=["tiny", "op"])
+    p.add_argument("--cli", action="store_true",
+                   help="certify the train CLI under torchrun's environment")
+    p.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--rank", type=int, default=0, help=argparse.SUPPRESS)
+    p.add_argument("--world", type=int, default=1, help=argparse.SUPPRESS)
+    p.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
+    p.add_argument("--out", default="", help=argparse.SUPPRESS)
+    args = p.parse_args(argv)
+    if args.worker:
+        worker(args)
+        return 0
+    if args.device == "cpu":
+        torch.set_num_threads(1)
+    if args.cli:
+        return cli_main(args)
+    cases = ([args.invalid_lane] if args.invalid_lane is not None
+             else [-1, 1])
+    ok = True
+    for ranks in args.ranks:
+        for invalid in cases:
+            lanes = args.lanes_per_rank or (2 if invalid >= 0 else 1)
+            res = certify(ranks, args.device, args.config, lanes, invalid,
+                          args.pose_noise, args.grad_clip)
+            print(describe(res), flush=True)
+            ok &= res["ok"]
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -21,15 +21,20 @@ Layer map:
                   with every head of the JAX KVNet (DPV, ``refine_dup``,
                   DGF's guided filter, ``refine_costv``, ``dnet_bayes``)
                   and the four legacy refine heads.
-- ``infer``       the per-frame inference step, the video rollout and the
-                  production loop with its export.
+- ``infer``       the per-frame inference step, the video rollout, the
+                  production loop with its export (one trajectory, or N
+                  in lockstep) and the AVI writer.
 - ``train``       the losses, the train step (its carry on the resample
                   kernel) and the epoch loop.
-- ``cli``         the test, evaluate and train command lines.
+- ``parallel``    devices and lane blocks, model replicas, and the
+                  data-parallel train step over ``torch.distributed``.
+- ``cli``         the test, evaluate and train command lines, the LBA and
+                  DSO ones, and the ``.sens`` batch decoder.
 - ``utils``       the JAX->torch weight bridge, checkpoints, logging,
-                  timers for the card.
+                  timers for the card, the torch.profiler helpers.
 - ``tools``       measurement scripts run on the card (kernel variants,
-                  an older kernel beside the current one).
+                  an older kernel beside the current one, the train CLI
+                  data parallel against one process).
 
 The port imports nothing of JAX or of the JAX package. Its entry points
 build on the CUDA card unless the caller names another device.

@@ -50,8 +50,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "(train_KVNet.py:229-237)")
     p.add_argument("--res_dir", type=str, default="results")
     p.add_argument("--multi_device", action="store_true",
-                   help="run the listed --traj_idx trajectories in lockstep, "
-                        "one per device (data mesh)")
+                   help="run the listed --traj_idx trajectories in lockstep "
+                        "on --device: one step call per frame for all of "
+                        "them (infer.loop.run_trajectories_parallel)")
     p.add_argument("--chunk_t", type=int, default=32,
                    help="frames per copy of the maps to the host")
     p.add_argument("--knet_coarse_d", type=int, default=1,
@@ -126,14 +127,10 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
 
     from neuralrgbd_tpu_torch.infer.loop import (resolve_cache_features,
+                                                 run_trajectories_parallel,
                                                  run_trajectory)
 
     cfg = model_config(args)
-    if args.multi_device and len(args.traj_idx) > 1:
-        raise NotImplementedError(
-            "--multi_device with more than one trajectory (lockstep lanes, "
-            "run_trajectories_parallel) is not ported yet (ROADMAP Queue A "
-            "item 5)")
     get_traj = make_get_traj(args, cfg)
     model, torch_imported = _init_or_load_params(cfg, args)
 
@@ -143,6 +140,17 @@ def main(argv=None):
         args.cache_features, torch_imported)
     if cache_warn:
         print(f"WARNING: {cache_warn}")
+
+    if args.multi_device and len(args.traj_idx) > 1:
+        trajs = [get_traj(i) for i in args.traj_idx]
+        res_dirs = [os.path.join(args.res_dir, f"{args.exp_name}_{i}")
+                    for i in args.traj_idx]
+        counts = run_trajectories_parallel(
+            model, cfg, trajs, res_dirs, chunk_t=max(1, args.chunk_t),
+            cache_features=args.cache_features)
+        for i, n in zip(args.traj_idx, counts):
+            print(f"trajectory {i}: exported {n} frames")
+        return
 
     for traj_idx in args.traj_idx:
         traj = get_traj(traj_idx)

@@ -316,7 +316,7 @@ def main(argv=None):
     span = t_win_r * step
     lead = span + 8
     frames = _FrameSource(traj, device, capacity=2 * (2 * span + 2 + lead))
-    exporter = ChunkExporter(res_dir, device, EXPORT_CHUNK, in_flight=2)
+    exporter = ChunkExporter([res_dir], EXPORT_CHUNK, in_flight=2)
 
     def queue_export(ref_indx, dc):
         nonlocal frame_cnt_out

@@ -29,7 +29,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--nepoch", type=int, default=10)
     p.add_argument("--LR", type=float, default=1e-5)
     p.add_argument("--batch_size", type=int, default=0,
-                   help="lanes (trajectories) per step; 0 = one (one card)")
+                   help="lanes (trajectories) per step; 0 = one per "
+                        "process (rank)")
     p.add_argument("--t_win", type=int, default=2)
     p.add_argument("--d_min", type=float, default=0.1)
     p.add_argument("--d_max", type=float, default=5.0)
@@ -73,20 +74,59 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--max_steps", type=int, default=None)
     p.add_argument("--multi_device", action="store_true",
-                   help="shard lanes over all devices (data mesh)")
+                   help="data parallel over the ranks of a torchrun launch "
+                        "(WORLD_SIZE > 1), each rank on its own block of "
+                        "lanes (NCCL, one card per rank; gloo with --device "
+                        "cpu); in one process, the single-device step")
     p.add_argument("--device", type=str, default="cuda",
-                   help="where the model trains: the CUDA card by default, "
-                        "'cpu' on request")
+                   help="where the model trains: the CUDA card by default "
+                        "(cuda:LOCAL_RANK under torchrun), 'cpu' on request")
     return p
+
+
+def _init_distributed(args):
+    """``(rank, world)`` of a torchrun launch under ``--multi_device``,
+    the process group initialized from torchrun's environment (NCCL on the
+    cards, gloo on the CPU); ``(0, 1)`` for one process. Sets
+    ``args.device`` to this rank's card."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1:
+        if args.multi_device:
+            print("--multi_device: one process, so the single-device train "
+                  "step (launch with torchrun for data parallelism)")
+        return 0, 1
+    if not args.multi_device:
+        raise ValueError(f"launched as {world} processes (WORLD_SIZE): pass "
+                         f"--multi_device to train data parallel")
+    if args.batch_size % world:
+        raise ValueError(f"--batch_size {args.batch_size} does not divide "
+                         f"over the {world} ranks")
+    import torch
+    import torch.distributed as dist
+
+    if args.device == "cuda":
+        args.device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
+    if args.device != "cpu":
+        # NCCL's communicator and every op without a device land here
+        torch.cuda.set_device(args.device)
+    backend = "gloo" if args.device == "cpu" else "nccl"
+    dist.init_process_group(backend, init_method="env://")
+    return dist.get_rank(), world
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.multi_device:
-        raise NotImplementedError(
-            "--multi_device (data-parallel training over several cards) is "
-            "not ported yet (ROADMAP Queue A item 5)")
+    rank, world = _init_distributed(args)
+    try:
+        return _train(args, rank, world)
+    finally:
+        if world > 1:
+            import torch.distributed as dist
 
+            dist.destroy_process_group()
+
+
+def _train(args, rank: int, world: int):
     from neuralrgbd_tpu_torch.config import ModelConfig, TrainConfig
     from neuralrgbd_tpu_torch.models.kvnet import KVNet
     from neuralrgbd_tpu_torch.train.loop import train_epochs
@@ -108,14 +148,15 @@ def main(argv=None):
         tb_add_img_interv=args.TB_add_img_interv, seed=args.seed,
         exp_name=args.exp_name,
     )
-    batch_size = args.batch_size or 1
+    batch_size = args.batch_size or world
     model = KVNet(cfg, device=args.device, seed=tcfg.seed)
 
     exp_log = os.path.join(args.log_dir, args.exp_name)
-    tee = Tee(exp_log).install()
+    tee = Tee(exp_log).install() if rank == 0 else None
     try:
-        save_args(os.path.join(exp_log, "tr_paras.txt"), args)
-        print(f"device: {args.device}  batch lanes: {batch_size}")
+        if rank == 0:
+            save_args(os.path.join(exp_log, "tr_paras.txt"), args)
+            print(f"device: {args.device}  batch lanes: {batch_size}")
 
         img_wh = (args.img_width, args.img_height)
         make_traj, n_traj = _dataset_factory(args, cfg, img_wh)
@@ -152,13 +193,28 @@ def main(argv=None):
             print(f"PSMNet warm start: {report['n_imported']} "
                   f"feature-extractor tensors from {args.psmnet_path}")
 
+        train_step = None
+        if world > 1:
+            from torch.distributed import get_backend as dist_backend
+
+            from neuralrgbd_tpu_torch.parallel import make_sharded_train_step
+
+            train_step = make_sharded_train_step(cfg, tcfg)
+            if rank == 0:
+                print(f"data-parallel over {world} ranks "
+                      f"({dist_backend()})")
+        lead = rank == 0       # only rank 0 writes logs and checkpoints
         state = train_epochs(
             state, cfg, tcfg, make_traj, n_traj, batch_size,
-            log_dir=exp_log, save_dir=save_dir, max_steps=args.max_steps,
+            train_step=train_step, log_dir=exp_log if lead else None,
+            save_dir=save_dir if lead else None, max_steps=args.max_steps,
+            verbose=lead,
         )
-        print("training done")
+        if lead:
+            print("training done")
     finally:
-        tee.uninstall()
+        if tee is not None:
+            tee.uninstall()
     return state
 
 

@@ -17,7 +17,9 @@ from neuralrgbd_tpu_torch.infer.step import (make_frame_features,
 def make_rollout(cfg: ModelConfig, kernels: bool = True,
                  fast_knet: bool = False, tf32: bool = False,
                  cache_features: Optional[bool] = None,
-                 coarse_knet: Optional[int] = None):
+                 coarse_knet: Optional[int] = None,
+                 paired_knet: Optional[bool] = None,
+                 packed_fe: Optional[bool] = None):
     """Returns ``rollout(model, frames_batch, bv_predict0, bv_valid0)``.
 
     frames_batch: dict of the step's batch tensors with a leading time axis
@@ -25,8 +27,9 @@ def make_rollout(cfg: ModelConfig, kernels: bool = True,
     bools. Returns (depth (T, N, H, W), confidence (T, N, H, W), final
     bv_predict (N, D, h, w)). The rollout runs wherever the model and the
     tensors are (the card, for a model built by default). ``kernels``,
-    ``fast_knet``, ``tf32`` (off: fp32 whatever the global flags say) and
-    ``coarse_knet``: see ``make_infer_step``.
+    ``fast_knet``, ``tf32`` (off: fp32 whatever the global flags say),
+    ``coarse_knet``, ``paired_knet`` and ``packed_fe`` (JAX's TPU lane
+    packings; the plain modules run): see ``make_infer_step``.
 
     ``cache_features=True``: consecutive sliding windows share V of their
     V+1 frames, so each step featurizes only the frame that enters
@@ -38,13 +41,14 @@ def make_rollout(cfg: ModelConfig, kernels: bool = True,
     on every backend but a TPU: off, for any weights (JAX also resolves
     torch-imported weights off, ``_auto_cache_features``).
     """
+    packing = dict(paired_knet=paired_knet, packed_fe=packed_fe)
     if cache_features:
         return _make_cached_rollout(cfg, make_infer_step(
             cfg, kernels=kernels, fast_knet=fast_knet, tf32=tf32,
-            coarse_knet=coarse_knet, with_features=True),
+            coarse_knet=coarse_knet, with_features=True, **packing),
             make_frame_features(tf32))
     step = make_infer_step(cfg, kernels=kernels, fast_knet=fast_knet,
-                           tf32=tf32, coarse_knet=coarse_knet)
+                           tf32=tf32, coarse_knet=coarse_knet, **packing)
 
     def rollout(model, frames_batch, bv_predict0, bv_valid0):
         bv_pred, valid = bv_predict0, list(bv_valid0)

@@ -141,7 +141,9 @@ def depth_and_confidence(cfg: ModelConfig, dpv: torch.Tensor,
 def make_infer_step(cfg: ModelConfig, kernels: bool = True,
                     fast_knet: bool = False, tf32: bool = False,
                     coarse_knet: Optional[int] = None,
-                    with_features: bool = False):
+                    with_features: bool = False,
+                    paired_knet: Optional[bool] = None,
+                    packed_fe: Optional[bool] = None):
     """Returns ``infer_step(model, batch, bv_predict, bv_valid)``.
 
     ``model`` is a ``KVNet`` built from ``cfg`` with ``single_refine=True``.
@@ -156,7 +158,11 @@ def make_infer_step(cfg: ModelConfig, kernels: bool = True,
     flags say. Either way cuDNN's algorithms are deterministic for the
     step (``step_numerics`` sets both for the step and restores them).
     ``coarse_knet``: the K-Net at D/coarse_knet for this step, in place of
-    ``cfg.knet_coarse_d`` (None keeps it).
+    ``cfg.knet_coarse_d`` (None keeps it). ``paired_knet``, ``packed_fe``:
+    accepted as JAX's step takes them (``neuralrgbd_tpu/infer/step.py:
+    105-106``); the step runs the plain K-Net and feature extractor
+    whatever they say (``models/kvnet.py``: JAX's TPU lane packings
+    compute the same convs).
 
     ``with_features=True`` returns instead
     ``infer_step(model, batch, bv_predict, bv_valid, feats)``, where
@@ -172,19 +178,22 @@ def make_infer_step(cfg: ModelConfig, kernels: bool = True,
     if coarse_knet is not None:
         cfg = dataclasses.replace(cfg, knet_coarse_d=int(coarse_knet))
     check_supported(cfg)
-    d_candis: dict = {}   # per device: copied there once (a copy syncs)
+    d_candis: dict = {}   # per device: copied there once
 
     @torch.no_grad()
     def run(model: KVNet, batch, bv_predict, bv_valid, feats):
         dev = bv_predict.device
-        if dev not in d_candis:     # both grids in one copy (one sync)
+        if dev not in d_candis:     # both grids in one copy
             # the refined DPV's bins: under refine_dup cfg.d_candi_up4,
             # linspace(d_min, d_max, 4D), the labels' grid (scanNet.py:327),
             # not the reference's display grid linspace(0, d_max, 4D)
             # (train_KVNet.py:75), which does not match the labels
             d_candi_r = cfg.d_candi_up4 if cfg.refine_dup else cfg.d_candi
-            grids = torch.as_tensor(np.concatenate(
-                [cfg.d_candi, d_candi_r]), device=dev)
+            grids = torch.from_numpy(np.concatenate([cfg.d_candi, d_candi_r]))
+            # to the card from pinned memory without a host sync (a copy
+            # from pageable memory waits for the card)
+            grids = (grids.pin_memory().to(dev, non_blocking=True)
+                     if dev.type == "cuda" else grids.to(dev))
             d_candis[dev] = grids.split([cfg.ndepth, grids.numel()
                                          - cfg.ndepth])
         d_candi, d_candi_r = d_candis[dev]

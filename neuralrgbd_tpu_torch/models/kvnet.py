@@ -33,6 +33,13 @@ state_dict and its bridge are the same for every setting.
 
 The model is built on the CUDA card unless the caller names another
 device (the CPU tests pass ``device="cpu"``).
+
+``paired_knet`` and ``packed_fe`` are accepted as JAX's KVNet takes them
+(``neuralrgbd_tpu/models/kvnet.py:73-81``) and run the plain modules.
+In JAX they pack two (or four) pixels into a TPU's 128-lane channel rows
+(``models/knet_paired.py``, ``models/fe_packed.py``): the same convs in
+another summation order, a layout for the TPU's lanes that a GPU has no
+use for.
 """
 
 from __future__ import annotations
@@ -84,13 +91,16 @@ def check_coarse_d(cd: int, D: int) -> None:
 
 class KVNet(nn.Module):
     def __init__(self, cfg: ModelConfig, device=torch.device("cuda"),
-                 seed: int = 0, single_refine: bool = False):
+                 seed: int = 0, single_refine: bool = False,
+                 paired_knet: bool = False, packed_fe: bool = False):
         """``device``: where the parameters live, the CUDA card by default;
         without one, ask for the CPU explicitly. ``single_refine``:
         inference-only, refine just the posterior (the two R-Net passes
         agree whenever the measurement's refinement is used); training
-        needs both."""
+        needs both. ``paired_knet``, ``packed_fe``: JAX's TPU lane
+        packings, run here on the plain modules (module docstring)."""
         super().__init__()
+        self.paired_knet, self.packed_fe = bool(paired_knet), bool(packed_fe)
         check_supported(cfg)
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():

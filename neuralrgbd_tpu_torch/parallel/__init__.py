@@ -1,0 +1,9 @@
+"""Data parallelism over lanes (counterpart of ``neuralrgbd_tpu/parallel``)."""
+
+from neuralrgbd_tpu_torch.parallel.mesh import (lane_block, make_mesh,
+                                                make_sharded_infer_step,
+                                                make_sharded_train_step,
+                                                replicate, shard_batch)
+
+__all__ = ["lane_block", "make_mesh", "make_sharded_infer_step",
+           "make_sharded_train_step", "replicate", "shard_batch"]

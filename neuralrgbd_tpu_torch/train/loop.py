@@ -15,6 +15,7 @@ stay on the device until one copy every 20 steps brings them down.
 
 from __future__ import annotations
 
+import copy
 import math
 import time
 from typing import Callable, Optional
@@ -23,7 +24,8 @@ import numpy as np
 import torch
 
 from neuralrgbd_tpu_torch.config import ModelConfig, TrainConfig
-from neuralrgbd_tpu_torch.data.batch_loader import BatchScheduler
+from neuralrgbd_tpu_torch.data.batch_loader import BatchGroup, BatchScheduler
+from neuralrgbd_tpu_torch.data.trajectory import window_indices
 from neuralrgbd_tpu_torch.infer.loop import _upload
 from neuralrgbd_tpu_torch.train.step import TrainState, make_train_step
 from neuralrgbd_tpu_torch.utils.checkpoint import save_checkpoint
@@ -32,12 +34,36 @@ from neuralrgbd_tpu_torch.utils.logging import MetricsWriter
 FLUSH_EVERY = 20   # steps per copy of the losses to the host
 
 
-def upload_batch(batch_np: dict, device) -> dict:
-    """A frame batch on ``device``: one non-blocking copy per array from
-    pinned memory; ``lane_valid`` stays on the host (the step reads it)."""
+def upload_batch(batch_np: dict, device, lanes: slice = slice(None)) -> dict:
+    """A frame batch's ``lanes`` on ``device``: one non-blocking copy per
+    array from pinned memory; ``lane_valid`` stays on the host, whole (the
+    step reads it)."""
     device = torch.device(device)
-    return {k: v if k == "lane_valid" else _upload(v, device)
+    return {k: v if k == "lane_valid" else _upload(v[lanes], device)
             for k, v in batch_np.items()}
+
+
+def block_frame_batch(group: BatchGroup, frame_idx: int, block: slice):
+    """``group.frame_batch(frame_idx)`` for the lanes of ``block`` only,
+    with ``lane_valid`` for every lane: the other lanes' from their poses
+    alone, so a data-parallel rank decodes no frame of another rank's
+    lanes."""
+    n = len(group.lanes)
+    if range(n)[block] == range(n):
+        return group.frame_batch(frame_idx)
+    part = copy.copy(group)
+    part.lanes, part.offsets, part.img_fns = (
+        group.lanes[block], group.offsets[block], group.img_fns[block])
+    batch, refs = part.frame_batch(frame_idx)
+    valid = np.zeros(n, bool)
+    for i in set(range(n)) - set(range(n)[block]):
+        ref_indx = group.t_win_r * group.step + group.offsets[i] + frame_idx
+        valid[i] = all(np.isfinite(group.lanes[i].pose_loader(j)).all()
+                       for j in (ref_indx, *window_indices(
+                           ref_indx, group.t_win_r, group.step)))
+    valid[block] = batch["lane_valid"]
+    batch["lane_valid"] = valid
+    return batch, refs
 
 
 def train_epochs(
@@ -60,8 +86,16 @@ def train_epochs(
     model is (the card for a model built there). ``eval_fn(state,
     total_iter)`` runs every ``eval_every`` steps (a holdout evaluation
     without restarting the epoch stream). The pose noise draws from a
-    generator on the model's device seeded with ``tcfg.seed``."""
+    generator on the model's device seeded with ``tcfg.seed``.
+
+    With a data-parallel ``train_step`` (``parallel.
+    make_sharded_train_step``) every rank runs this loop on the same
+    seeded schedule and steps its block of each batch's lanes
+    (``train_step.lane_block``), decoding only those
+    (``block_frame_batch``); give ``log_dir`` and ``save_dir`` to one
+    rank only."""
     train_step = train_step or make_train_step(cfg, tcfg)
+    lane_block = getattr(train_step, "lane_block", lambda n: slice(0, n))
     writer = MetricsWriter(log_dir) if log_dir else None
     device = next(state.model.parameters()).device
     generator = torch.Generator(device=device).manual_seed(tcfg.seed)
@@ -100,14 +134,16 @@ def train_epochs(
         sched = BatchScheduler(make_traj, n_traj, batch_size,
                                t_win_r=cfg.t_win_r, seed=tcfg.seed + epoch,
                                augment=tcfg.augment)
+        block = lane_block(batch_size)
         for group_idx, group in enumerate(sched):
             w, h = group.lanes[0].dpv_size_wh
-            bv_predict = torch.full((batch_size, D, h, w), -math.log(D),
-                                    dtype=torch.float32, device=device)
+            bv_predict = torch.full((len(range(batch_size)[block]), D, h, w),
+                                    -math.log(D), dtype=torch.float32,
+                                    device=device)
             carry_valid = np.zeros(batch_size, bool)
 
             for frame_idx in range(group.traj_len):
-                batch_np, refs = group.frame_batch(frame_idx)
+                batch_np, refs = block_frame_batch(group, frame_idx, block)
                 lane_valid = batch_np["lane_valid"]
 
                 if lane_valid.sum() == 0:
@@ -116,7 +152,8 @@ def train_epochs(
                     continue
 
                 out = train_step(state, upload_batch(batch_np, device),
-                                 bv_predict, carry_valid.copy(), generator)
+                                 bv_predict, carry_valid[block].copy(),
+                                 generator)
                 bv_predict = out.bv_predict
                 loss_buf.append((total_iter + 1, out.loss))
                 # a lane's carry is only valid if THIS window was valid

@@ -35,7 +35,10 @@ How the port meets JAX's semantics:
   extractor's bilinear ``F.interpolate`` are summed in a fixed order
   instead of by the card's atomic adds, so two runs of the same steps
   give the same bits (ROADMAP Queue C, C2). The forwards are unchanged.
-- No host sync: the loss stays on the device.
+- No host sync: the loss stays on the device. The data-parallel step
+  (``parallel.make_sharded_train_step``) runs this step on each rank's
+  block of lanes and sums the gradients and the loss over the ranks
+  before the update; a ``gloo`` all-reduce of CUDA tensors waits for them.
 
 The heads train as in JAX: ``refine_dup`` takes its two image-size NLL
 terms against ``batch["dmap_up4_imgsize_digit"]`` (the 4D-bin labels,
@@ -215,6 +218,22 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, kernels: bool = True):
     also carries ``dmap_up4_imgsize_digit`` (N, H, W), the 4D-bin labels
     of the image-size terms.
     """
+    return _make_train_step(cfg, tcfg, kernels)
+
+
+def _make_train_step(cfg: ModelConfig, tcfg: TrainConfig, kernels: bool,
+                     lane_block: Optional[Callable[[int], slice]] = None,
+                     reduce: Optional[Callable] = None):
+    """``make_train_step``'s step, for one process's block of lanes
+    (``parallel.make_sharded_train_step``). ``lane_block(n)``: the lanes
+    of the whole batch of n that this process runs (all of them if None);
+    the batch's tensors, ``bv_predict`` and ``bv_valid`` hold just those
+    and ``batch["lane_valid"]`` all n, so the loss scale is 1 / (valid
+    lanes of the whole batch) and the pose noise is drawn for all n lanes
+    and sliced. ``reduce(model, loss) -> loss`` sums the gradients (in
+    ``.grad``) and the loss over the processes, before the update. The
+    step's ``lane_block`` attribute is ``lane_block``."""
+    lane_block = lane_block or (lambda n: slice(0, n))
     check_supported(cfg)
     check_trainable(cfg, tcfg)
     # refine_dup: the image-size NLL terms against the 4*D-bin labels
@@ -256,13 +275,22 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, kernels: bool = True):
         d_candi = d_candis.get(dev)
         if d_candi is None:
             d_candi = d_candis[dev] = torch.as_tensor(cfg.d_candi, device=dev)
-        lane_valid = [bool(v) for v in batch["lane_valid"]]
-        scale = 1.0 / max(sum(lane_valid), 1)
+        valid_all = [bool(v) for v in batch["lane_valid"]]
+        block = lane_block(len(valid_all))
+        lane_valid = valid_all[block]
+        scale = 1.0 / max(sum(valid_all), 1)
         N, D = bv_predict.shape[:2]
+        if N != len(lane_valid):
+            raise ValueError(f"the carry holds {N} lanes and this step's "
+                             f"block of the batch {len(lane_valid)}")
         poses = batch["poses"]
         if tcfg.pose_noise_level > 0:
-            eps_r, eps_t = draw_pose_noise(poses, generator)
-            poses = apply_pose_noise(poses, eps_r, eps_t,
+            # drawn for the whole batch, then this block's lanes: each
+            # lane's draw is the one-process step's
+            eps_r, eps_t = draw_pose_noise(
+                poses.new_empty((len(valid_all), *poses.shape[1:])),
+                generator)
+            poses = apply_pose_noise(poses, eps_r[block], eps_t[block],
                                      tcfg.pose_noise_level)
         lanes = dict(batch, poses=poses)
         with step_numerics(False), deterministic_backward():
@@ -279,6 +307,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, kernels: bool = True):
                 (lane * scale).backward()
                 loss = loss + lane.detach() * scale
                 dpvs.append(dpv.detach())
+            if reduce is not None:
+                loss = reduce(model, loss)
             state.apply_gradients()
             # the prediction for the next frame, outside the graph, as the
             # reference's .detach(): TBPTT of length one
@@ -290,4 +320,5 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, kernels: bool = True):
                 depth_low = depth_regression(dpvs, d_candi)
         return TrainStepOutput(state, loss, bv_next, depth_low)
 
+    train_step.lane_block = lane_block
     return train_step

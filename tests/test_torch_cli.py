@@ -15,15 +15,17 @@ initializer per parameter shape, in each fresh process.
 Standard: exports as in ``test_torch_loop.py`` (maps within 1
 quantization unit, images and scene_path_info equal); the evaluate JSON
 lines equal in keys and within rtol 1e-3. Also: the loader raises on a
-state_dict that leaves a parameter unloaded or has a wrong shape, and the
-options the port does not have raise ``NotImplementedError``
-(``--cache_features`` and ``--knet_coarse_d`` run:
-``tests/test_torch_flags_e2e.py``; ``--refine_net DGF``:
-``tests/test_torch_heads.py``).
+state_dict that leaves a parameter unloaded or has a wrong shape, an
+orbax checkpoint directory raises ``NotImplementedError``, and
+``--multi_device`` runs each lane as the single run (``--cache_features``
+and ``--knet_coarse_d`` run: ``tests/test_torch_flags_e2e.py``;
+``--refine_net DGF``: ``tests/test_torch_heads.py``; lockstep lanes
+against JAX's: ``tests/test_torch_lockstep.py``).
 """
 
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -149,7 +151,32 @@ def test_loader_raises_on_a_wrong_shape(variables, state_dict):
     ["--multi_device", "--traj_idx", "0", "1"],
     ["--model_path", "orbax_checkpoint_dir"],
 ], ids=["multi_device", "orbax"])
-def test_unported_options_raise(run, extra):
+def test_unported_options_raise(run, extra, tmp_path):
+    """An orbax checkpoint directory raises ``NotImplementedError``.
+    ``--multi_device``, unported until the lockstep loop came, now runs:
+    on a dataset of the scene twice, each lane's maps and images equal,
+    byte for byte, the CLI's single run on the scene (lockstep lanes:
+    ``tests/test_torch_lockstep.py``)."""
+    if extra[0] == "--multi_device":
+        data = tmp_path / "twice"
+        scene = os.path.join(run["common"][run["common"].index(
+            "--dataset_path") + 1], "scene0000_00")
+        for i in range(2):
+            shutil.copytree(scene, data / f"scene000{i}_00")
+        argv = list(run["common"])
+        argv[argv.index("--dataset_path") + 1] = str(data)
+        port_cli(argv + ["--device", "cpu", "--res_dir", str(tmp_path),
+                         "--exp_name", "t"] + extra)
+        single = run["base"] / "port" / "t_0"
+        names = sorted(n for n in os.listdir(single) if not n.endswith(".txt"))
+        assert len(names) == 3 * 5
+        for i in range(2):
+            assert sorted(os.listdir(tmp_path / f"t_{i}")) == sorted(
+                os.listdir(single))
+            for name in names:
+                assert (tmp_path / f"t_{i}" / name).read_bytes() == (
+                    single / name).read_bytes(), (i, name)
+        return
     argv = [a for a in run["common"] if not a.endswith(".tar")]
     argv.remove("--model_path")
     with pytest.raises(NotImplementedError):

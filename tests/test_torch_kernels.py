@@ -20,9 +20,13 @@ weight packing (a bf16 layout, so exact both ways), the conv's tile walk
 (every voxel once), and the sweep on channel-planar features seen through
 strides (the plain twin's sums over channels may run in another order on
 another layout: rtol and atol 1e-6).
+
+On the card, also the lockstep loop's launches: one sweep per active lane
+and one prediction per step call, each lane equal to its own run.
 """
 
 import math
+import os
 
 import numpy as np
 import pytest
@@ -386,3 +390,61 @@ def test_sweep_l2_is_the_fused_kernel(cuda_device):
     want_cost, want_kept = ksweep.sweep_cost_volume_fused(
         ref, srcs, Rs, ts, cam, d, 10.0, "L2", 3)
     assert torch.equal(cost, want_cost) and torch.equal(kept, want_kept)
+
+
+@pytest.mark.cuda
+def test_lockstep_lanes_launch_per_lane_and_equal_their_runs(cuda_device,
+                                                             tmp_path,
+                                                             monkeypatch):
+    """``run_trajectories_parallel`` on the card at 96x64, D=8, two
+    scenes of 10 and 8 frames: each step call launches the sweep once per
+    active lane and the prediction once, and each lane's files equal its
+    own ``run_trajectory``'s bit for bit (``scene_path_info.txt`` under
+    JAX's lockstep header)."""
+    from neuralrgbd_tpu_torch.config import ModelConfig
+    from neuralrgbd_tpu_torch.data.scannet import make_trajectory
+    from neuralrgbd_tpu_torch.data.synthetic import write_scannet_scene
+    from neuralrgbd_tpu_torch.infer import loop
+    from neuralrgbd_tpu_torch.models.kvnet import KVNet
+
+    cfg = ModelConfig(feature_dim=16, kv_feature_dim=16, ndepth=8,
+                      d_min=0.5, d_max=4.0)
+    trajs = []
+    for i, n in enumerate((10, 8)):
+        write_scannet_scene(str(tmp_path / f"s{i}"), n_frames=n, seed=i)
+        trajs.append(make_trajectory(0, 5, str(tmp_path / f"s{i}"),
+                                     img_size_wh=(96, 64),
+                                     d_candi=cfg.d_candi))
+    model = KVNet(cfg, device=cuda_device, single_refine=True)
+    calls, make = [], loop.make_infer_step
+
+    def counted_make(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def counted(model, batch, bv_predict, bv_valid, *rest):
+            b1, b2 = ksweep.launches, kresample.launches
+            out = step(model, batch, bv_predict, bv_valid, *rest)
+            calls.append((len(bv_valid), ksweep.launches - b1,
+                          kresample.launches - b2))
+            return out
+        return counted
+
+    monkeypatch.setattr(loop, "make_infer_step", counted_make)
+    lanes = [str(tmp_path / f"lane{i}") for i in range(2)]
+    assert loop.run_trajectories_parallel(model, cfg, trajs, lanes,
+                                          verbose=False) == [5, 3]
+    assert [c[0] for c in calls] == [2, 2, 2, 1, 1]
+    assert all(b1 == n and b2 == 1 for n, b1, b2 in calls)
+    for traj, lane in zip(trajs, lanes):
+        solo = lane + "_solo"
+        loop.run_trajectory(model, cfg, traj, solo, verbose=False)
+        for name in sorted(os.listdir(lane)):
+            with open(os.path.join(lane, name), "rb") as a, \
+                    open(os.path.join(solo, name), "rb") as b:
+                got, want = a.read(), b.read()
+            if name == "scene_path_info.txt":
+                # JAX's lockstep header: the name's characters two apart
+                got, want = (x.decode().split("\n") for x in (got, want))
+                assert got[0] == "  ".join(want[0])
+                got, want = got[1:], want[1:]
+            assert got == want, name

@@ -25,15 +25,22 @@ its model is built on the card unless the caller asks for the CPU.
   file, and ``data.mdata`` equal to it but for the import of the port's
   own ``data.trajectory`` (their behaviour against the originals:
   ``tests/test_torch_lba.py``);
-- hygiene: no ``.py`` file of the port, nor ``chip_smoke.py``, imports
-  ``jax``, ``flax`` or ``neuralrgbd_tpu`` (checked on the syntax tree), and
-  importing every port module leaves ``jax`` and ``neuralrgbd_tpu`` out of
-  ``sys.modules``.
+- the host-side tools: ``data.sens_writer`` equal to the original file,
+  ``infer.avi`` equal to it but for the reference checkout's path prefix
+  in its docstring, ``cli.decode_sens`` but for the module name in its
+  usage line (their behaviour against the
+  originals: ``tests/test_torch_host_tools.py``);
+- hygiene: no ``.py`` file of the port (``parallel/`` among them), nor
+  ``chip_smoke.py`` or ``dryrun_dp_torch.py``, imports ``jax``, ``flax``
+  or ``neuralrgbd_tpu`` (checked on the syntax tree), and importing every
+  port module and ``dryrun_dp_torch`` leaves ``jax`` and
+  ``neuralrgbd_tpu`` out of ``sys.modules``.
 """
 
 import ast
 import dataclasses
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -393,7 +400,7 @@ def _forbidden(name: str) -> bool:
 
 
 @pytest.mark.parametrize(
-    "path", PORT_FILES + [REPO / "chip_smoke.py"],
+    "path", PORT_FILES + [REPO / "chip_smoke.py", REPO / "dryrun_dp_torch.py"],
     ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_import_in_source(path):
     bad = [n for n in _imported_modules(path) if _forbidden(n)]
@@ -406,9 +413,17 @@ def test_forbidden_names():
     assert not _forbidden("neuralrgbd_tpu_torch.config")
 
 
+def test_the_parallel_package_is_checked():
+    """``parallel/`` is among the files the two checks around read."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert {"neuralrgbd_tpu_torch/parallel/__init__.py",
+            "neuralrgbd_tpu_torch/parallel/mesh.py"} <= names
+
+
 def test_importing_the_port_loads_no_jax():
     mods = [".".join(p.relative_to(REPO).with_suffix("").parts)
             .removesuffix(".__init__") for p in PORT_FILES]
+    mods.append("dryrun_dp_torch")
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -498,4 +513,28 @@ def test_pose_free_copies_equal_originals(copy, original, imports):
     for name in imports:
         want = want.replace(f"from neuralrgbd_tpu.{name} ",
                             f"from neuralrgbd_tpu_torch.{name} ")
+    assert (REPO / copy).read_text() == want
+
+
+@pytest.mark.parametrize("copy,original,renames", [
+    ("neuralrgbd_tpu_torch/infer/avi.py", "neuralrgbd_tpu/infer/avi.py",
+     ((re.compile(r"``/\w+/reference/code/"), "``code/"),)),
+    ("neuralrgbd_tpu_torch/data/sens_writer.py",
+     "neuralrgbd_tpu/data/sens_writer.py", ()),
+    ("neuralrgbd_tpu_torch/cli/decode_sens.py",
+     "neuralrgbd_tpu/cli/decode_sens.py",
+     (("python -m neuralrgbd_tpu.cli.", "python -m neuralrgbd_tpu_torch.cli."),
+      ))], ids=["infer.avi", "data.sens_writer", "cli.decode_sens"])
+def test_host_tool_copies_equal_originals(copy, original, renames):
+    """The copy's text is the original's, with ``renames`` applied (a
+    string, or a pattern: the reference checkout's absolute path prefix
+    becomes its path inside the checkout)."""
+    want = (REPO / original).read_text()
+    for old, new in renames:
+        if isinstance(old, str):
+            assert old in want
+            want = want.replace(old, new)
+        else:
+            want, n = old.subn(new, want)
+            assert n
     assert (REPO / copy).read_text() == want

@@ -629,10 +629,25 @@ def test_train_cli_checkpoints_resume_and_test_cli(scene_root, tmp_path):
     assert "scene_path_info.txt" in out and "d_00000.pgm" in out
 
 
-def test_train_cli_options_the_port_lacks_raise(scene_root, tmp_path):
-    with pytest.raises(NotImplementedError, match="multi_device"):
-        port_train_cli.main(train_argv(scene_root, tmp_path, 1,
-                                       "--multi_device"))
+def test_train_cli_options_the_port_lacks_raise(scene_root, tmp_path,
+                                                capsys):
+    """``--multi_device``, which the port lacked until its data-parallel
+    step, now trains: in one process, as JAX's CLI on one device, on the
+    single-device step, with a note; the model it ends with equals the
+    run's without the flag. Launched as several processes without it, the
+    CLI raises."""
+    plain = port_train_cli.main(train_argv(scene_root, tmp_path / "a", 2))
+    capsys.readouterr()
+    multi = port_train_cli.main(train_argv(scene_root, tmp_path / "b", 2,
+                                           "--multi_device"))
+    assert "single-device train step" in capsys.readouterr().out
+    assert multi.step == plain.step == 2
+    for k, v in plain.model.state_dict().items():
+        assert torch.equal(multi.model.state_dict()[k], v), k
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("WORLD_SIZE", "2")
+        with pytest.raises(ValueError, match="--multi_device"):
+            port_train_cli.main(train_argv(scene_root, tmp_path / "c", 1))
 
 
 def test_train_cli_runs_on_the_card_by_default(scene_root, tmp_path):
