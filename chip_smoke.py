@@ -180,11 +180,25 @@ Phases, each printing its own lines:
    carry's losses within rel 1e-3 (and whether bit for bit), both ranks'
    final parameters equal, the 3-step carry's loss falling, one prediction
    launch per step per rank, each rank's ms per step and peak memory.
-   A rank that fails to start or run fails the phase.
+   A rank that fails to start or run fails the phase;
+25. the training campaign (``tools.train_campaign.run --wide``) at the
+   operating point: 3 ``mixed3`` training scenes and the 3 holdouts (one
+   per kind) of 12 frames, 20 steps, a holdout evaluation at steps 0, 10
+   and 20 and after training, each new best abs_rel checkpointed (the
+   first at step 10): the loss and every evaluation finite; one sweep and
+   one resample launch per holdout frame and one resample per train step;
+   every best checkpoint and the last restored into a fresh ``TrainState``
+   equal, bit for bit, to the state each saved (weights, Adam's moments
+   and step, the count), and one train step on the same batch from the
+   step-10 state and from its restored copy equal; ms per step; then
+   ``tools.eval_deviations.gate`` on the best checkpoint: its five arms
+   (exact, cached, coarse, deploy, bf16) finite, the exact arm equal to
+   the campaign's step-10 evaluation, one sweep and one resample per
+   frame of each arm.
 
 Then one ``{"kernels": [...]}`` line (the conv kernel's launches: phase
 10's, phase 17's and phase 22's fast path; the sweep's and the
-resample's add phases 19-24, phase 24's counted in the rank processes)
+resample's add phases 19-25, phase 24's counted in the rank processes)
 and, last, the ``{"ok": true, ...}`` line. Any failed check exits non-zero before those two lines. A kernel's
 ``ms`` in that line is its ``device_ms``. Every
 kernel's ``bound_ms`` is computed here from the shapes it was timed at:
@@ -196,6 +210,7 @@ over 3.35 TB/s and its operations over the card's peak for their type
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import io
 import json
@@ -257,7 +272,9 @@ from neuralrgbd_tpu_torch.train.loop import upload_batch
 from neuralrgbd_tpu_torch.train.loss import nll_dpv_loss
 from neuralrgbd_tpu_torch.train.step import (create_train_state,
                                              make_train_step)
-from neuralrgbd_tpu_torch.utils.checkpoint import restore_params_partial
+from neuralrgbd_tpu_torch.tools import eval_deviations, train_campaign
+from neuralrgbd_tpu_torch.utils.checkpoint import (restore_checkpoint,
+                                                   restore_params_partial)
 from neuralrgbd_tpu_torch.utils.timing import (call_ms, device_ms, host_ms,
                                                host_us)
 
@@ -361,6 +378,10 @@ LOCK_FRAMES = (24, 20, 16)
 LOCK_INVALID = (1, 9)
 TIME_FRAMES = 12
 TIME_LANES = (1, 2, 4)
+# Phase 25: a short --wide campaign (3 mixed3 training scenes and the 3
+# holdouts, one per kind, of CAMP_FRAMES frames), an evaluation every
+# CAMP_EVAL steps, the first of them checkpointed as the best
+CAMP_SCENES, CAMP_FRAMES, CAMP_STEPS, CAMP_EVAL = 3, 12, 20, 10
 
 failures: list[str] = []
 
@@ -3026,6 +3047,137 @@ def phase_dp(device) -> dict:
     return launches
 
 
+def states_equal(a, b) -> bool:
+    """Two ``TrainState``s equal bit for bit: each weight, Adam's
+    ``exp_avg``/``exp_avg_sq``/``step`` per parameter, and the count."""
+    sa, sb = a.optimizer.state_dict()["state"], b.optimizer.state_dict()[
+        "state"]
+    return (a.step == b.step and sa.keys() == sb.keys()
+            and all(torch.equal(x, y) for x, y in zip(
+                a.model.state_dict().values(), b.model.state_dict().values()))
+            and all(torch.equal(sa[i][k], sb[i][k]) for i in sa
+                    for k in ("exp_avg", "exp_avg_sq", "step")))
+
+
+def phase_campaign(device, tmp: str) -> dict:
+    print(f"phase 25: the training campaign (tools.train_campaign --wide) at "
+          f"{IMG_HW[1]}x{IMG_HW[0]}, D={CFG.ndepth}, fp32: {CAMP_SCENES} "
+          f"mixed3 scenes and 3 holdouts of {CAMP_FRAMES} frames, "
+          f"{CAMP_STEPS} steps, an evaluation every {CAMP_EVAL}; then the "
+          f"deviation gate (tools.eval_deviations) on its best checkpoint",
+          flush=True)
+    save_dir = os.path.join(tmp, "campaign")
+    args = train_campaign.build_parser().parse_args([
+        "--wide", "--scenes", str(CAMP_SCENES), "--max_steps",
+        str(CAMP_STEPS), "--eval_every", str(CAMP_EVAL), "--save_dir",
+        save_dir, "--device", str(device)])
+    snapshots, losses = {}, []
+    steps = make_train_step(CFG, train_campaign.settings(args)[1])
+
+    def train_step(*a):
+        out = steps(*a)
+        losses.append(out.loss)
+        return out
+
+    def on_save(path, state):
+        snap = snapshots[path] = copy.deepcopy(state)   # the state it saved
+        for p in snap.model.parameters():    # deepcopy drops the gradients,
+            p.grad = torch.zeros_like(p)     # which the train step keeps
+
+    reset_launches()
+    t0 = time.perf_counter()
+    camp, summary = train_campaign.run(
+        args, train_step=train_step, on_save=on_save, cfg=CFG,
+        img_wh=IMG_HW[::-1], n_frames=CAMP_FRAMES,
+        root=os.path.join(tmp, "scenes"))
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    state, evals, holdouts = camp.state, camp.evals, camp.holdouts
+    tcfg, make = camp.tcfg, camp.make_traj
+    vals = torch.stack(losses).cpu()
+    n_frames = sum(len(t) - 2 * CFG.t_win_r - 1 for t in holdouts)
+    check(len(vals) == CAMP_STEPS and bool(torch.isfinite(vals).all())
+          and all(math.isfinite(r["abs_rel"]) and math.isfinite(r["delta1"])
+                  for _, r in evals),
+          f"{len(vals)} steps, the loss finite ({float(vals[0]):.3f} -> "
+          f"{float(vals[-1]):.3f}); the evaluations at steps "
+          f"{[s for s, _ in evals]} finite: abs_rel "
+          f"{[round(r['abs_rel'], 4) for _, r in evals]}, delta1 "
+          f"{[round(r['delta1'], 4) for _, r in evals]}")
+    check(launches == {"sweep_fused": len(evals) * n_frames,
+                       "resample": CAMP_STEPS + len(evals) * n_frames,
+                       "conv3d": 0},
+          f"launches {launches}: one sweep and one resample per holdout "
+          f"frame ({len(evals)} evaluations of {n_frames} frames), one "
+          f"resample per train step (the carry)")
+    print(f"  {CARD[0]}: {summary['ms_per_step']} ms per step (host clock, "
+          f"evaluations excluded), the whole run {wall:.1f} s: train "
+          f"{summary['train_s']} s, evaluations {summary['eval_s']} s",
+          flush=True)
+
+    best = os.path.join(save_dir, "best", f"ckpt_{CAMP_EVAL:08d}")
+    last = os.path.join(save_dir, f"ckpt_{CAMP_STEPS:08d}")
+    check(best in snapshots and snapshots.keys() == set(camp.best_paths)
+          and os.path.isdir(last) and all(
+              os.path.dirname(p) == os.path.dirname(best) for p in snapshots),
+          f"the campaign saved its best checkpoints under best/ (the first "
+          f"at step {CAMP_EVAL}: {sorted(snapshots)}) and the step-"
+          f"{CAMP_STEPS} last one")
+    restored = {}
+    # each best against a copy of the state it saved; the last (saved at
+    # the loop's end) against the final state in memory
+    for path, saved in (*sorted(snapshots.items()), (last, state)):
+        fresh = create_train_state(CFG, tcfg, model=KVNet(
+            CFG, device=device, seed=SEED + 7))
+        restored[path], extra = restore_checkpoint(path, fresh)
+        check(states_equal(restored[path], saved) and extra == {},
+              f"{os.path.relpath(path, save_dir)} restored into a fresh "
+              f"TrainState equals the state it saved, bit for bit (weights, "
+              f"exp_avg, exp_avg_sq, step; count {restored[path].step})")
+    # the same batch and the same pose-noise draw from each
+    b, _, _ = window_batch(make(0), 2, CFG.t_win_r, with_labels=True)
+    D, (w, h) = CFG.ndepth, make(0).dpv_size_wh
+    reset_launches()
+    outs = [steps(s, upload_batch(b, device),
+                  torch.full((1, D, h, w), -math.log(D), device=device),
+                  [False], torch.Generator(device=device).manual_seed(SEED))
+            for s in (snapshots[best], restored[best])]
+    check(torch.equal(outs[0].loss, outs[1].loss)
+          and torch.equal(outs[0].bv_predict, outs[1].bv_predict)
+          and states_equal(snapshots[best], restored[best]),
+          f"one train step from the step-{CAMP_EVAL} state in memory and "
+          f"from its restored checkpoint: the same loss "
+          f"({float(outs[0].loss):.6f}), carry and state, bit for bit")
+    stepped = read_launches()
+    launches = {k: launches[k] + stepped[k] for k in KERNELS}
+
+    model = eval_deviations.load_weights(best, CFG, device)
+    reset_launches()
+    rows, _ = eval_deviations.gate(model, holdouts)
+    gate_launches = read_launches()
+    by_arm = {r["arm"]: r for r in rows}
+    at_best = dict(evals)[CAMP_EVAL]
+    keys = ("abs_rel", "delta1", "depth_absdiff_mean_m",
+            "depth_absdiff_p99_m", "depth_absdiff_max_m")
+    check(all(math.isfinite(r[k]) for r in rows for k in keys),
+          "every arm of the gate finite: " + "; ".join(
+              f"{r['arm']} {r['abs_rel']} / {r['delta1']} "
+              f"({r['depth_absdiff_mean_m']} m mean)" for r in rows))
+    check(by_arm["exact"]["abs_rel"] == round(at_best["abs_rel"], 5)
+          and by_arm["exact"]["delta1"] == round(at_best["delta1"], 5)
+          and by_arm["exact"]["depth_absdiff_max_m"] == 0.0,
+          f"the gate's exact arm equals the campaign's evaluation at step "
+          f"{CAMP_EVAL}: abs_rel {by_arm['exact']['abs_rel']} vs "
+          f"{at_best['abs_rel']:.6f}, delta1 {by_arm['exact']['delta1']} vs "
+          f"{at_best['delta1']:.6f}")
+    n_arms = len(eval_deviations.ARMS)
+    check(gate_launches == {"sweep_fused": n_arms * n_frames,
+                            "resample": n_arms * n_frames, "conv3d": 0},
+          f"the gate's launches {gate_launches}: one sweep and one resample "
+          f"per frame of each of its {n_arms} arms")
+    return {k: launches[k] + gate_launches[k] for k in KERNELS}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     device = phase_device()
@@ -3057,7 +3209,8 @@ def main() -> int:
                      phase_lba(device, loop_info, tmp, errs),
                      phase_heads(model, device, loop_info, tmp),
                      phase_lockstep(model, device, loop_info, tmp),
-                     phase_dp(device)):
+                     phase_dp(device),
+                     phase_campaign(device, tmp)):
             for name, n in path.items():
                 launches[name] += n
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of command "

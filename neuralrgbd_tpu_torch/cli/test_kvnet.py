@@ -28,8 +28,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--split_file", type=str, default=None)
     p.add_argument("--model_path", type=str, default=None,
                    help="reference torch checkpoint (.tar/.pth/.pt) or a "
-                        "checkpoint directory of cli.train_kvnet; random "
-                        "init if omitted")
+                        "checkpoint directory of cli.train_kvnet (a JAX "
+                        "orbax directory after convert_jax_checkpoint.py); "
+                        "random init if omitted")
     p.add_argument("--t_win", type=int, default=2)
     p.add_argument("--d_min", type=float, default=0.1)
     p.add_argument("--d_max", type=float, default=5.0)
@@ -181,8 +182,9 @@ def _init_or_load_params(cfg, args):
                                   load_torch_checkpoint(args.model_path))
         return model, True
     if args.model_path:
-        # a checkpoint directory of the port's train CLI (ckpt_XXXXXXXX/);
-        # an orbax directory of the JAX package raises NotImplementedError
+        # a checkpoint directory of the port's train CLI (ckpt_XXXXXXXX/),
+        # or one that convert_jax_checkpoint.py made of a JAX orbax
+        # directory; an orbax directory itself raises NotImplementedError
         from neuralrgbd_tpu_torch.utils.checkpoint import (
             restore_params_partial)
 

@@ -122,6 +122,22 @@ def write_scannet_scene(root: str, n_frames: int = 10,
     return scene
 
 
+def write_scene(root: str, i: int, kind: str, n_frames: int) -> str:
+    """Scene ``i`` of a ``synthetic_dataset`` root of ``kind``, written by
+    the writer the kind picks for that index unless it is there already
+    (a scene is a function of its index, so a reader of a few scenes
+    writes only those)."""
+    scene = os.path.join(root, f"scene{i:04d}_00")
+    if os.path.isdir(scene):
+        return scene
+    if kind == "curved" or (kind == "mixed3" and i % 3 == 2):
+        return write_curved_scene(root, i, n_frames=n_frames)
+    if (kind == "multi" or (kind == "mixed" and i % 2 == 1)
+            or (kind == "mixed3" and i % 3 == 1)):
+        return write_multiplane_scene(root, i, n_frames=n_frames)
+    return write_plane_scene(root, i, n_frames=n_frames)
+
+
 def synthetic_dataset(cfg: ModelConfig, img_size_wh=(384, 256),
                       n_scenes: int = 4, n_frames: int = 16,
                       root: Optional[str] = None, kind: str = "plane"):
@@ -145,14 +161,7 @@ def synthetic_dataset(cfg: ModelConfig, img_size_wh=(384, 256),
         tempfile.gettempdir(),
         f"neuralrgbd_{kind}_scenes_{n_scenes}x{n_frames}")
     for i in range(n_scenes):
-        if not os.path.isdir(os.path.join(root, f"scene{i:04d}_00")):
-            if kind == "curved" or (kind == "mixed3" and i % 3 == 2):
-                write_curved_scene(root, i, n_frames=n_frames)
-            elif (kind == "multi" or (kind == "mixed" and i % 2 == 1)
-                  or (kind == "mixed3" and i % 3 == 1)):
-                write_multiplane_scene(root, i, n_frames=n_frames)
-            else:
-                write_plane_scene(root, i, n_frames=n_frames)
+        write_scene(root, i, kind, n_frames)
 
     def make_traj(i):
         return make_trajectory(i, 5, root, img_size_wh=img_size_wh,

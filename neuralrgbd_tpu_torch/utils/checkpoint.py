@@ -10,7 +10,10 @@ cursor), tensors on the CPU. The model's keys are the reference KVNET's
 (``feature_extractor.*``, ``kv_net.*``, ``r_net.*``).
 
 The JAX package writes orbax directories, which need orbax; the port
-does not read them (``NotImplementedError``).
+does not read them (``NotImplementedError``). ``convert_jax_checkpoint.py``
+at the repository's root, run where the JAX package and orbax import,
+turns one into this format: the weights, Adam's moments, the step and the
+loop's cursor.
 """
 
 from __future__ import annotations
@@ -32,9 +35,10 @@ def _load(path: str) -> dict:
     f = os.path.join(path, FILE)
     if not os.path.isfile(f):
         raise NotImplementedError(
-            f"{path!r} holds no {FILE}: not a checkpoint of this port. "
-            f"Orbax checkpoint directories (the JAX package's "
-            f"utils/checkpoint.py) need orbax, which the port does not use")
+            f"{path!r} holds no {FILE}: not a checkpoint of this port. For "
+            f"an orbax checkpoint directory of the JAX package, run "
+            f"convert_jax_checkpoint.py (where the JAX package and orbax "
+            f"import) and give the port its output")
     # our own files: the payload holds tensors, ints and the loop's cursor
     return torch.load(f, map_location="cpu", weights_only=True)
 
