@@ -194,11 +194,28 @@ Phases, each printing its own lines:
    ``tools.eval_deviations.gate`` on the best checkpoint: its five arms
    (exact, cached, coarse, deploy, bf16) finite, the exact arm equal to
    the campaign's step-10 evaluation, one sweep and one resample per
-   frame of each arm.
+   frame of each arm;
+26. the campaign's ``--mesh`` arm (``tools.train_campaign --mesh
+   --wide``) at JAX's reduced point (D=32, feature_dim 32, 128x96, 8
+   ``plane`` scenes and 2 holdouts of 16 frames, 8 lanes a step): the
+   sweep kernel against its twin at D=32, C=35 on the 32x24 grid (two
+   poses) and the prediction kernel at (32, 24, 32) under the four poses,
+   one lane each and all four in one launch; then, through
+   ``dryrun_dp_torch.certify_campaign``, 2 ``gloo`` ranks of 4 lanes, both
+   processes on the one card (rank 0 writing the scenes, evaluating and
+   checkpointing), for 6 steps with an evaluation every 3, against one
+   process at 8 lanes on the same scenes: the DP certificate (the first
+   loss within rel 1e-4, its summed gradient within rel 1e-5, the later
+   losses within rel 1e-3, the parameters after step 1 within 0.05 lr),
+   both ranks' final parameters equal, rank 0's abs_rel within 1e-3 of the one
+   process's at each evaluation; one prediction launch per step per rank
+   and one sweep and one prediction per holdout frame on rank 0; each
+   rank's ms per step and peak memory.
 
 Then one ``{"kernels": [...]}`` line (the conv kernel's launches: phase
 10's, phase 17's and phase 22's fast path; the sweep's and the
-resample's add phases 19-25, phase 24's counted in the rank processes)
+resample's add phases 19-26, phase 24's and 26's counted in the rank
+processes)
 and, last, the ``{"ok": true, ...}`` line. Any failed check exits non-zero before those two lines. A kernel's
 ``ms`` in that line is its ``device_ms``. Every
 kernel's ``bound_ms`` is computed here from the shapes it was timed at:
@@ -382,6 +399,8 @@ TIME_LANES = (1, 2, 4)
 # holdouts, one per kind, of CAMP_FRAMES frames), an evaluation every
 # CAMP_EVAL steps, the first of them checkpointed as the best
 CAMP_SCENES, CAMP_FRAMES, CAMP_STEPS, CAMP_EVAL = 3, 12, 20, 10
+# phase 26: the --mesh campaign's steps and evaluation interval
+MESH_STEPS, MESH_EVAL = 6, 3
 
 failures: list[str] = []
 
@@ -451,19 +470,20 @@ def _roll_poses(V: int, degrees: float, device) -> torch.Tensor:
     return torch.from_numpy(poses).to(device)
 
 
-def sweep_args(device, poses):
-    """(ref, srcs, Rs, ts, cam, d_candi) at V=4, D=64, 64x96, C=67."""
-    V, h, w, C = CFG.n_views, 64, 96, CFG.feature_dim + 3
+def sweep_args(device, poses, cfg=CFG, h=64, w=96):
+    """(ref, srcs, Rs, ts, cam, d_candi) at V=4 and ``cfg``'s D and
+    feature_dim + 3 channels on an h x w grid (D=64, 64x96, C=67)."""
+    V, C = cfg.n_views, cfg.feature_dim + 3
     g = torch.Generator().manual_seed(SEED)
     ref = torch.randn(h, w, C, generator=g).to(device)
     srcs = torch.randn(V, h, w, C, generator=g).to(device)
     cam = camera_from_K(_K(h, w), device)
-    d = torch.as_tensor(CFG.d_candi, device=device)
+    d = torch.as_tensor(cfg.d_candi, device=device)
     return ref, srcs, poses[:, :3, :3], poses[:, :3, 3], cam, d
 
 
-def sweep_inputs(device, poses):
-    ref, srcs, Rs, ts, cam, d = sweep_args(device, poses)
+def sweep_inputs(device, poses, cfg=CFG, h=64, w=96):
+    ref, srcs, Rs, ts, cam, d = sweep_args(device, poses, cfg, h, w)
     return ref, srcs, _sweep_pixel_coords(cam, Rs, ts, d, *ref.shape[:2])
 
 
@@ -521,9 +541,10 @@ POSES = ("synthetic pose_next", "roll 3 deg", "roll 5 deg",
          "behind the camera")
 
 
-def resample_inputs(device, D, h, w, kinds=POSES[:1], seed=SEED):
-    """(log-DPV (N, D, h, w), pose_next (N, 4, 4), K (N, 3, 3), d_candi):
-    one lane per pose kind, lane n with a fov 4n deg wider."""
+def resample_inputs(device, D, h, w, kinds=POSES[:1], seed=SEED, cfg=CFG):
+    """(log-DPV (N, D, h, w), pose_next (N, 4, 4), K (N, 3, 3), d_candi
+    of ``cfg``): one lane per pose kind, lane n with a fov 4n deg
+    wider."""
     g = torch.Generator().manual_seed(seed)
     N = len(kinds)
     lv = torch.log_softmax(torch.randn(N, D, h, w, generator=g), 1)
@@ -531,7 +552,7 @@ def resample_inputs(device, D, h, w, kinds=POSES[:1], seed=SEED):
     Ks = np.stack([_K(h, w, 4 * n) for n in range(N)])
     return (lv.to(device), torch.from_numpy(poses).to(device),
             torch.from_numpy(Ks).to(device),
-            torch.as_tensor(CFG.d_candi, device=device))
+            torch.as_tensor(cfg.d_candi, device=device))
 
 
 def phase_resample(device, errs) -> None:
@@ -3178,6 +3199,111 @@ def phase_campaign(device, tmp: str) -> dict:
     return {k: launches[k] + gate_launches[k] for k in KERNELS}
 
 
+def phase_mesh(device, errs) -> dict:
+    import dryrun_dp_torch
+
+    mcfg, (W, H) = train_campaign.MESH_CFG, train_campaign.MESH_WH
+    h, w = H // 4, W // 4
+    print(f"phase 26: the campaign's --mesh arm at JAX's reduced point "
+          f"(D={mcfg.ndepth}, feature_dim {mcfg.feature_dim}, {W}x{H}, "
+          f"{train_campaign.MESH_LANES} lanes a step): the sweep and the "
+          f"prediction kernels against their twins at D={mcfg.ndepth}, "
+          f"C={mcfg.feature_dim + 3} on the {w}x{h} grid, then 2 gloo ranks "
+          f"on {device} against one process, {MESH_STEPS} steps, an "
+          f"evaluation every {MESH_EVAL}", flush=True)
+    for pose_name, poses in (("translation", translation_poses(device)),
+                             ("roll 5 deg/view", _roll_poses(4, 5.0, device))):
+        ref, srcs, coords = sweep_inputs(device, poses, mcfg, h, w)
+        pcost, pkept = ksweep.sweep_plain(ref, srcs, coords,
+                                          mcfg.sigma_soft_max, "L2", 3)
+        cost, kept = ksweep.sweep_kernel(planar(ref), planar(srcs), coords,
+                                         mcfg.sigma_soft_max, "L2", 3)
+        torch.cuda.synchronize()
+        e_cost, e_kept = max_err(cost, pcost), max_err(kept, pkept)
+        errs["sweep_fused"].append(max(e_cost, e_kept))
+        check(cost.shape == (mcfg.ndepth, h, w)
+              and within(cost, pcost, *TOL["cost"])
+              and within(kept, pkept, *TOL["kept"]),
+              f"sweep at D={mcfg.ndepth} C={mcfg.feature_dim + 3} {w}x{h}, "
+              f"{pose_name}, planar: max|cost err| {e_cost:.3e}, max|kept "
+              f"err| {e_kept:.3e}")
+    pad = math.log(1.0 / mcfg.ndepth)
+    for kinds in ((k,) for k in POSES):
+        args = resample_inputs(device, mcfg.ndepth, h, w, kinds, cfg=mcfg)
+        got = kresample.predict_next_cuda(*args, pad)
+        want = kresample.predict_next_plain(*args, pad)
+        torch.cuda.synchronize()
+        e = max_err(got, want)
+        errs["resample"].append(e)
+        check(within(got, want, *TOL["resample"]),
+              f"predict_next ({mcfg.ndepth}, {h}, {w}) N=1, {kinds[0]}: "
+              f"max|err| {e:.3e}")
+    args = resample_inputs(device, mcfg.ndepth, h, w, POSES, cfg=mcfg)
+    got = kresample.predict_next_cuda(*args, pad)
+    want = kresample.predict_next_plain(*args, pad)
+    torch.cuda.synchronize()
+    e = max_err(got, want)
+    errs["resample"].append(e)
+    check(within(got, want, *TOL["resample"]),
+          f"predict_next ({mcfg.ndepth}, {h}, {w}) N={len(POSES)} (a rank's "
+          f"block of the carry): max|err| {e:.3e}")
+
+    launches = {k: 0 for k in KERNELS}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as work:
+            res = dryrun_dp_torch.certify_campaign(
+                2, work, device=str(device), config="mesh", steps=MESH_STEPS,
+                eval_every=MESH_EVAL, backend="gloo", timeout=300)
+    except Exception as exc:
+        check(False, f"the 2-rank --mesh campaign ran on the card: {exc}")
+        return launches
+    print(f"  {dryrun_dp_torch.describe_campaign(res)}", flush=True)
+    check(res["dloss"] < 1e-4 and res["dgrad"] < dryrun_dp_torch.GRAD_RTOL
+          and res["dlosses"] < dryrun_dp_torch.CARRY_RTOL
+          and res["dparam"] < dryrun_dp_torch.PARAM_ATOL,
+          f"the 2-rank --mesh campaign vs one process at 8 lanes: loss rel "
+          f"{res['dloss']:.2e} (< 1e-4), summed gradient rel "
+          f"{res['dgrad']:.2e} (< {dryrun_dp_torch.GRAD_RTOL:.0e}), later "
+          f"losses rel {res['dlosses']:.2e} (< "
+          f"{dryrun_dp_torch.CARRY_RTOL:.0e}), parameters after step 1 "
+          f"max |diff| {res['dparam']:.2e} (< 0.05 lr); bit for bit: "
+          f"{'yes' if res['bitwise'] else 'no'}")
+    check(res["replicas_equal"] and res["only_rank0_evaluates"]
+          and res["deval"] < dryrun_dp_torch.EVAL_ATOL
+          and all(math.isfinite(x) for x in res["losses"]),
+          f"both ranks end with the same parameters; rank 0 alone "
+          f"evaluates, its abs_rel within {dryrun_dp_torch.EVAL_ATOL:.0e} "
+          f"of the one process's at steps {[s for s, _ in res['evals']]} "
+          f"(max |diff| {res['deval']:.2e})")
+    n_frames = 2 * (train_campaign.MESH_FRAMES - 2 * mcfg.t_win_r - 1)
+    n_evals = len(res["evals"])
+    evaluated = {"sweep_fused": n_evals * n_frames,
+                 "resample": MESH_STEPS + n_evals * n_frames}
+    check(res["launches"] == [evaluated, {"sweep_fused": 0,
+                                          "resample": MESH_STEPS}]
+          and res["ref_launches"] == evaluated,
+          f"launches: rank 0 {res['launches'][0]}, rank 1 "
+          f"{res['launches'][1]}, one process {res['ref_launches']}: one "
+          f"resample per train step (a rank's block of the carry) and one "
+          f"sweep and one resample per holdout frame ({n_evals} evaluations "
+          f"of {n_frames} frames, rank 0 only)")
+    for r, (ms, peak) in enumerate(zip(res["ms"], res["peak_gib"])):
+        print(f"  {CARD[0]}: rank {r}: ms per step "
+              f"{' / '.join(f'{x:.1f}' for x in ms)} (host clock ending in "
+              f"a sync; both ranks share the card), peak memory "
+              f"{peak:.2f} GiB", flush=True)
+    print(f"  {CARD[0]}: one process, 8 lanes: ms per step "
+          f"{' / '.join(f'{x:.1f}' for x in res['ref_ms'])}, peak memory "
+          f"{res['ref_peak_gib']:.2f} GiB; the phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for r in [*res["launches"], res["ref_launches"]]:
+        for name, n in r.items():
+            launches[name] += n
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     device = phase_device()
@@ -3210,7 +3336,8 @@ def main() -> int:
                      phase_heads(model, device, loop_info, tmp),
                      phase_lockstep(model, device, loop_info, tmp),
                      phase_dp(device),
-                     phase_campaign(device, tmp)):
+                     phase_campaign(device, tmp),
+                     phase_mesh(device, errs)):
             for name, n in path.items():
                 launches[name] += n
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of command "

@@ -36,6 +36,20 @@ and the head) as the JAX run had them, and the optimizer's structure
   ``restore_params_partial``, every leaf required), for a checkpoint
   whose optimizer differs from the template; the port's optimizer then
   starts empty, and the step is read from the directory's name.
+
+``--jax_init`` reads no checkpoint: it builds JAX's ``create_train_state``
+for ``--seed``, the model flags and the optimizer's structure
+(``--grad_clip_max``, ``--lr_schedule``) and writes it as the port's
+step-0 state: JAX's initial weights, Adam's zero moments and count 0.
+JAX draws the weights with threefry, which gives the same numbers on
+every platform, so the state equals the one a JAX run on any device
+starts from. The LR schedule is a function, not part of the state: the
+run that resumes from the checkpoint takes its own (``--lr``,
+``--lr_decay_steps``). The JAX campaign's ``--wide`` start:
+
+  python3 convert_jax_checkpoint.py --jax_init --out \
+      saved_models/campaign_jaxinit --grad_clip_max 2.0 \
+      --lr_schedule cosine
 """
 
 from __future__ import annotations
@@ -49,8 +63,10 @@ import numpy as np
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="JAX orbax checkpoint -> the port's state.pt")
-    p.add_argument("ckpt", help="a JAX ckpt_XXXXXXXX directory, or a "
-                                "directory holding some (the latest is read)")
+    p.add_argument("ckpt", nargs="?",
+                   help="a JAX ckpt_XXXXXXXX directory, or a directory "
+                        "holding some (the latest is read); none with "
+                        "--jax_init")
     p.add_argument("--out", required=True,
                    help="base directory of the port's checkpoint "
                         "(<out>/ckpt_XXXXXXXX/state.pt)")
@@ -73,6 +89,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--params_only", action="store_true",
                    help="weights only, for an optimizer that differs from "
                         "the template")
+    p.add_argument("--jax_init", action="store_true",
+                   help="no checkpoint: JAX's create_train_state for --seed "
+                        "as the port's step-0 state")
+    p.add_argument("--seed", type=int, default=0,
+                   help="--jax_init: JAX's PRNGKey seed (the campaign's: 0)")
     return p
 
 
@@ -96,20 +117,27 @@ def _configs(args):
     return JModelConfig(**model), tcfg, ModelConfig(**model)
 
 
-def jax_template(jcfg, jtcfg):
-    """JAX's ``create_train_state`` for the flags, as shapes only
-    (``jax.eval_shape``: nothing is initialized or compiled). The weights
-    do not depend on the image size, so a small sample batch serves."""
-    import jax
-
-    from neuralrgbd_tpu.train import create_train_state
-
+def sample_batch(jcfg) -> dict:
+    """A small zero sample batch for JAX's ``create_train_state``: the
+    weights depend neither on the image size nor on the pixels (flax
+    draws each from the seed and the module's path)."""
     H, W, V = 64, 96, jcfg.n_views
     sample = {"ref": np.zeros((1, H, W, 3), np.float32),
               "srcs": np.zeros((1, V, H, W, 3), np.float32),
               "poses": np.tile(np.eye(4, dtype=np.float32), (1, V, 1, 1)),
               "K": np.array([[[W, 0, W / 2], [0, W, H / 2], [0, 0, 1]]],
                             np.float32)}
+    return sample
+
+
+def jax_template(jcfg, jtcfg):
+    """JAX's ``create_train_state`` for the flags, as shapes only
+    (``jax.eval_shape``: nothing is initialized or compiled)."""
+    import jax
+
+    from neuralrgbd_tpu.train import create_train_state
+
+    sample = sample_batch(jcfg)
     return jax.eval_shape(lambda: create_train_state(jcfg, jtcfg, sample))
 
 
@@ -167,19 +195,11 @@ def convert(ckpt: str, out: str, args) -> str:
     """Convert the JAX checkpoint ``ckpt`` (a ``ckpt_XXXXXXXX`` directory)
     for the flags ``args``; returns the port's checkpoint directory."""
     import jax
-    import torch
 
     from neuralrgbd_tpu.utils.checkpoint import restore_params_partial
 
-    from neuralrgbd_tpu_torch.config import TrainConfig
-    from neuralrgbd_tpu_torch.models.kvnet import KVNet
-    from neuralrgbd_tpu_torch.train.step import create_train_state
-    from neuralrgbd_tpu_torch.utils.checkpoint import save_checkpoint
-    from neuralrgbd_tpu_torch.utils.torch_import import state_dict_from_jax
-
     jcfg, jtcfg, cfg = _configs(args)
     template = jax_template(jcfg, jtcfg)
-    host = lambda tree: jax.tree.map(np.asarray, tree)
     if args.params_only:
         zeros = jax.tree.map(lambda x: np.zeros(x.shape, x.dtype),
                              template.params)   # what an absent leaf keeps
@@ -194,7 +214,46 @@ def convert(ckpt: str, out: str, args) -> str:
         state, extra = restore_jax(ckpt, template)
         params, step = state.params, int(state.step)
         adam = adam_state(state.opt_state)
+    path = write_port_state(cfg, params, adam, step, extra, out)
+    print(f"converted {ckpt} (step {step}, "
+          f"{'weights only' if adam is None else 'weights and Adam state'}"
+          f"{f', cursor {extra}' if extra else ''}) -> {path}", flush=True)
+    return path
 
+
+def jax_init(out: str, args) -> str:
+    """JAX's ``create_train_state`` for ``args.seed``, the model flags and
+    the optimizer's structure, written as the port's step-0 state;
+    returns its checkpoint directory."""
+    import dataclasses
+
+    from neuralrgbd_tpu.train import create_train_state
+
+    jcfg, jtcfg, cfg = _configs(args)
+    state = create_train_state(jcfg, dataclasses.replace(jtcfg,
+                                                         seed=args.seed),
+                               sample_batch(jcfg))
+    path = write_port_state(cfg, state.params, adam_state(state.opt_state),
+                            int(state.step), {}, out)
+    print(f"JAX's initial state for seed {args.seed} (step 0, Adam's zero "
+          f"moments) -> {path}", flush=True)
+    return path
+
+
+def write_port_state(cfg, params, adam, step: int, extra, out: str) -> str:
+    """The port's ``TrainState`` of JAX's ``params`` (and, unless None,
+    Adam's state ``adam``) at ``step`` with the cursor ``extra``, saved
+    under ``out``; returns its checkpoint directory."""
+    import jax
+    import torch
+
+    from neuralrgbd_tpu_torch.config import TrainConfig
+    from neuralrgbd_tpu_torch.models.kvnet import KVNet
+    from neuralrgbd_tpu_torch.train.step import create_train_state
+    from neuralrgbd_tpu_torch.utils.checkpoint import save_checkpoint
+    from neuralrgbd_tpu_torch.utils.torch_import import state_dict_from_jax
+
+    host = lambda tree: jax.tree.map(np.asarray, tree)
     model = KVNet(cfg, device="cpu")
     model.load_state_dict(state_dict_from_jax(host(params), cfg.refine_net),
                           strict=True)
@@ -210,15 +269,18 @@ def convert(ckpt: str, out: str, args) -> str:
                                          "exp_avg_sq": nu[name]}
     tstate.step = step
     extra = {k: np.asarray(v).item() for k, v in dict(extra or {}).items()}
-    path = save_checkpoint(out, step, tstate, extra=extra)
-    print(f"converted {ckpt} (step {step}, "
-          f"{'weights only' if adam is None else 'weights and Adam state'}"
-          f"{f', cursor {extra}' if extra else ''}) -> {path}", flush=True)
-    return path
+    return save_checkpoint(out, step, tstate, extra=extra)
 
 
 def main(argv=None) -> str:
-    args = build_parser().parse_args(argv)
+    p = build_parser()
+    args = p.parse_args(argv)
+    if args.jax_init:
+        if args.ckpt or args.params_only:
+            p.error("--jax_init reads no checkpoint")
+        return jax_init(args.out, args)
+    if not args.ckpt:
+        p.error("give a checkpoint, or --jax_init")
     from neuralrgbd_tpu.utils.checkpoint import latest_checkpoint
 
     ckpt = (args.ckpt if os.path.basename(os.path.normpath(args.ckpt))

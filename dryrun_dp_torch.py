@@ -7,6 +7,8 @@ the counterpart of ``__graft_entry__.dryrun_multichip`` for
     python3 dryrun_dp_torch.py --ranks 4 --invalid_lane 1 --grad_clip 0.5
     python3 dryrun_dp_torch.py --ranks 2 --device cuda --config op
     python3 dryrun_dp_torch.py --cli --ranks 4 --device cuda --config op
+    python3 dryrun_dp_torch.py --campaign --ranks 2 --device cpu --config tiny
+    python3 dryrun_dp_torch.py --campaign --ranks 4 --device cuda
 
 Each rank is a process of its own (this file with ``--worker``), joined
 over ``tcp://localhost`` with the ``gloo`` backend (chosen here, on the
@@ -47,6 +49,23 @@ moment after step 1 (0.1 x the summed gradient) within rel ``GRAD_RTOL``
 of the one-process CLI's, and prints the last checkpoints' distance and
 each run's wall time from process start to exit.
 
+``--campaign`` certifies the campaign's ``--mesh`` arm instead
+(``certify_campaign``): ``tools.train_campaign --mesh --wide`` at JAX's
+reduced point (``--config mesh``: D=32, feature_dim 32, 128x96, 8 lanes a
+step; ``tiny`` for the CPU tests) for ``CAMPAIGN_STEPS`` steps with an
+evaluation every ``CAMPAIGN_EVAL``, as ``--ranks`` processes in torchrun's
+environment (NCCL on the cards, one a rank; gloo on the CPU, and for
+ranks that share a card: ``certify_campaign(backend="gloo")``), then as
+one process at 8 lanes on the scenes rank 0 wrote. The certificate is the one
+above, with the parameters after step 1 held closer: the first step's
+loss within rel 1e-4, its summed gradient within rel ``GRAD_RTOL``, every
+later loss within rel ``CARRY_RTOL``, the parameters after step 1 within
+``PARAM_ATOL`` (0.05 lr); and every rank ends with the same
+parameters, and rank 0's holdout abs_rel at every evaluation within
+``EVAL_ATOL`` of the one process's. Also printed: each rank's ms per step
+(host clock ending in a sync, the median over the steps) beside the one
+process's.
+
 Exits non-zero if any certificate fails; every rank process is stopped.
 """
 
@@ -74,6 +93,14 @@ GRAD_RTOL = 1e-5
 # CPU the carry's losses then lie up to 6.4e-5 apart, and 0.16 and more
 # with one rank's gradient dropped from the sum
 CARRY_RTOL = 1e-3
+# rank 0's holdout abs_rel against the one process's at each evaluation
+EVAL_ATOL = 1e-3
+# the campaign's parameters after step 1: Adam's first step moves each
+# element by at most lr, so two runs from one init differ by at most 2 lr
+# and a 3 lr bound cannot fail; the two programs' rounding moved them
+# 8.2e-4 lr (2 gloo ranks on one card) and 1.6e-3 lr (4 cards, NCCL)
+PARAM_ATOL = 0.05 * LR
+CAMPAIGN_STEPS, CAMPAIGN_EVAL = 20, 10
 
 
 def configs():
@@ -83,6 +110,16 @@ def configs():
     return {"tiny": (ModelConfig(feature_dim=16, kv_feature_dim=16, ndepth=8,
                                  d_min=0.5, d_max=4.0), (32, 48)),
             "op": (ModelConfig(), (256, 384))}
+
+
+def campaign_configs():
+    """name -> (ModelConfig, img_wh, frames per scene) of the ``--mesh``
+    campaign: JAX's reduced point, and a tiny one for the CPU tests."""
+    from neuralrgbd_tpu_torch.tools import train_campaign as tc
+
+    tiny, (h, w) = configs()["tiny"]
+    return {"mesh": (tc.MESH_CFG, tc.MESH_WH, tc.MESH_FRAMES),
+            "tiny": (tiny, (w, h), 8)}
 
 
 def problem(config: str, n_lanes: int, invalid_lane: int, pose_noise: float,
@@ -169,6 +206,96 @@ def worker(args) -> None:
         result = drive(cfg, tcfg, batch, make_sharded_train_step(cfg, tcfg),
                        args.device)
         torch.save(result, os.path.join(args.out, f"rank{args.rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def recorded(step, device):
+    """``step`` wrapped to record each step's loss and ms (host clock
+    ending in a sync), and the summed gradients and the parameters after
+    the first step, into the returned dict."""
+    rec = {"losses": [], "ms": []}
+    cuda = torch.device(device).type == "cuda"
+
+    def wrapped(state, *args):
+        t0 = time.perf_counter()
+        out = step(state, *args)
+        if cuda:
+            torch.cuda.synchronize(device)
+        rec["ms"].append(1e3 * (time.perf_counter() - t0))
+        rec["losses"].append(out.loss.detach())
+        if len(rec["losses"]) == 1:
+            for key, attr in (("grads1", "grad"), ("params1", "data")):
+                rec[key] = {k: getattr(p, attr).detach().cpu().clone()
+                            for k, p in state.model.named_parameters()}
+        return out
+
+    if hasattr(step, "lane_block"):
+        wrapped.lane_block = step.lane_block
+    return wrapped, rec
+
+
+def drive_campaign(config: str, root: str, save_dir: str, device: str,
+                   steps: int, eval_every: int) -> dict:
+    """``tools.train_campaign.run`` with ``--mesh --wide`` at ``config``
+    on the scenes under ``root`` (written if absent), in the world this
+    process is in: its recorded steps (``recorded``), the final
+    parameters, the evaluations (rank 0's), the summary, the kernels'
+    launches and the peak memory on the card."""
+    import torch.distributed as dist
+
+    from neuralrgbd_tpu_torch.ops.cuda import resample as kresample
+    from neuralrgbd_tpu_torch.ops.cuda import sweep_fused as ksweep
+    from neuralrgbd_tpu_torch.parallel import make_sharded_train_step
+    from neuralrgbd_tpu_torch.tools import train_campaign
+    from neuralrgbd_tpu_torch.train.step import make_train_step
+
+    cfg, img_wh, n_frames = campaign_configs()[config]
+    args = train_campaign.build_parser().parse_args([
+        "--mesh", "--wide", "--max_steps", str(steps), "--eval_every",
+        str(eval_every), "--lr", str(LR), "--save_dir", save_dir,
+        "--device", device])
+    tcfg = train_campaign.settings(args)[1]
+    step = (make_sharded_train_step(cfg, tcfg) if dist.is_initialized()
+            else make_train_step(cfg, tcfg))
+    wrapped, rec = recorded(step, device)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:     # the card this process runs on, its allocator started
+        torch.cuda.set_device(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    before = (ksweep.launches, kresample.launches)
+    camp, summary = train_campaign.run(args, train_step=wrapped, cfg=cfg,
+                                       img_wh=img_wh, n_frames=n_frames,
+                                       root=root)
+    return {"losses": [float(x) for x in rec["losses"]],
+            "grads1": rec["grads1"], "params1": rec["params1"],
+            "params": {k: p.detach().cpu().clone()
+                       for k, p in camp.state.model.named_parameters()},
+            "ms": rec["ms"], "evals": camp.evals, "summary": summary,
+            "launches": {"sweep_fused": ksweep.launches - before[0],
+                         "resample": kresample.launches - before[1]},
+            "peak_gib": (torch.cuda.max_memory_allocated(device) / 2**30
+                         if cuda else None)}
+
+
+def campaign_worker(args) -> None:
+    """One rank of the ``--mesh`` campaign, joined from torchrun's
+    environment: drive it, save the results."""
+    import torch.distributed as dist
+
+    from neuralrgbd_tpu_torch.parallel import init_distributed
+    from neuralrgbd_tpu_torch.tools.train_campaign import MESH_LANES
+
+    if args.device == "cpu":
+        torch.set_num_threads(1)
+    rank, _, device = init_distributed(True, "--mesh", MESH_LANES,
+                                       "--mesh: a batch of", args.device,
+                                       args.backend)
+    try:
+        result = drive_campaign(args.config, args.root,
+                                os.path.join(args.out, f"save{rank}"),
+                                device, args.steps, args.eval_every)
+        torch.save(result, os.path.join(args.out, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
 
@@ -274,6 +401,103 @@ def certify(ranks: int, device: str = "cpu", config: str = "tiny",
     return res
 
 
+def certify_campaign(ranks: int, work: str, device: str = "cpu",
+                     config: str = "mesh", steps: int = CAMPAIGN_STEPS,
+                     eval_every: int = CAMPAIGN_EVAL,
+                     backend: str | None = None,
+                     timeout: float = 900.0) -> dict:
+    """The ``--mesh`` campaign as ``ranks`` processes in torchrun's
+    environment (rank r on ``cuda:r`` for ``device`` "cuda"; any other
+    device is every rank's), its scenes written by rank 0 under
+    ``work/scenes``, then as one process at 8 lanes here on the same
+    scenes. Returns the certificate's numbers, the ranks' logs and
+    ``ok``. Raises if a rank fails or times out (every rank process is
+    stopped first)."""
+    out = os.path.join(work, "ranks")
+    os.makedirs(out, exist_ok=True)
+    root = os.path.join(work, "scenes")
+    env = repo_env(OMP_NUM_THREADS="1", WORLD_SIZE=str(ranks),
+                   MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
+    cmd = [sys.executable, os.path.abspath(__file__), "--campaign_worker",
+           "--device", device, "--config", config, "--steps", str(steps),
+           "--eval_every", str(eval_every), "--root", root, "--out", out]
+    if backend:
+        cmd += ["--backend", backend]
+    logs = run_ranks([cmd] * ranks,
+                     [dict(env, RANK=str(r), LOCAL_RANK=str(r))
+                      for r in range(ranks)], timeout)
+    dp = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+          for r in range(ranks)]
+    one = device if device != "cuda" else "cuda:0"
+    ref = drive_campaign(config, root, os.path.join(work, "save_one"), one,
+                         steps, eval_every)
+
+    got, want = dp[0]["losses"], ref["losses"]
+    rel = [abs(a - b) / max(abs(b), 1e-9) for a, b in zip(got, want)]
+    evals = [(s, m["abs_rel"]) for s, m in dp[0]["evals"]]
+    ref_evals = [(s, m["abs_rel"]) for s, m in ref["evals"]]
+    deval = (max(abs(a - b) for (_, a), (_, b) in zip(evals, ref_evals))
+             if [s for s, _ in evals] == [s for s, _ in ref_evals]
+             else float("inf"))
+    res = {
+        "ranks": ranks, "device": device, "config": config, "steps": steps,
+        "losses": got, "ref_losses": want,
+        "dloss": rel[0], "dlosses": max(rel),
+        "dgrad": rel_err(dp[0]["grads1"], ref["grads1"]),
+        "dparam": max(float((a - ref["params1"][k]).abs().max())
+                      for k, a in dp[0]["params1"].items()),
+        "dparam_end": max(float((a - ref["params"][k]).abs().max())
+                          for k, a in dp[0]["params"].items()),
+        "bitwise": got == want and all(
+            torch.equal(a, ref["params"][k])
+            for k, a in dp[0]["params"].items()),
+        "replicas_equal": all(torch.equal(r["params"][k], p)
+                              for r in dp[1:]
+                              for k, p in dp[0]["params"].items()),
+        "evals": evals, "ref_evals": ref_evals, "deval": deval,
+        "only_rank0_evaluates": all(not r["evals"] for r in dp[1:]),
+        "summary": dp[0]["summary"], "ref_summary": ref["summary"],
+        "ms": [r["ms"] for r in dp], "ref_ms": ref["ms"],
+        "launches": [r["launches"] for r in dp],
+        "ref_launches": ref["launches"],
+        "peak_gib": [r["peak_gib"] for r in dp],
+        "ref_peak_gib": ref["peak_gib"], "logs": logs, "root": root,
+    }
+    res["ok"] = bool(
+        len(got) == len(want) == steps and all(np.isfinite(got))
+        and res["dloss"] < 1e-4 and res["dgrad"] < GRAD_RTOL
+        and res["dlosses"] < CARRY_RTOL and res["dparam"] < PARAM_ATOL
+        and res["replicas_equal"] and deval < EVAL_ATOL
+        and res["only_rank0_evaluates"])
+    return res
+
+
+def median_ms(ms: list) -> float:
+    """The median ms of the steps after the first (its warm-up)."""
+    return float(np.median(ms[1:] if len(ms) > 1 else ms))
+
+
+def describe_campaign(res: dict) -> str:
+    return (f"dryrun_dp_torch --campaign ({res['ranks']} ranks, "
+            f"{res['config']}, {res['device']}, {res['steps']} steps) "
+            f"{'ok' if res['ok'] else 'FAILED'}: losses "
+            f"{res['losses'][0]:.4f} -> {res['losses'][-1]:.4f} | "
+            f"DP-vs-single: dloss {res['dloss']:.2e} dgrad "
+            f"{res['dgrad']:.2e} (bound {GRAD_RTOL:.0e}) later losses "
+            f"{res['dlosses']:.2e} (bound {CARRY_RTOL:.0e}) dparam "
+            f"{res['dparam']:.2e} (bound {PARAM_ATOL:.0e}; at the end "
+            f"{res['dparam_end']:.2e}), bit for bit "
+            f"{'yes' if res['bitwise'] else 'no'} | ranks' parameters equal "
+            f"{'yes' if res['replicas_equal'] else 'NO'} | holdout abs_rel "
+            f"at steps {[s for s, _ in res['evals']]}: rank 0 "
+            f"{[round(a, 5) for _, a in res['evals']]}, one process "
+            f"{[round(a, 5) for _, a in res['ref_evals']]}, max |diff| "
+            f"{res['deval']:.2e} (bound {EVAL_ATOL:.0e}) | ms per step "
+            f"(median after step 1, host clock ending in a sync): ranks "
+            f"{[round(median_ms(m), 1) for m in res['ms']]}, one process "
+            f"{median_ms(res['ref_ms']):.1f}")
+
+
 def certify_cli(ranks: int, scenes: str, work: str, device: str = "cpu",
                 config: str = "tiny", steps: int = 2,
                 timeout: float = 600.0) -> dict:
@@ -376,6 +600,26 @@ def cli_main(args) -> int:
     return 0 if ok else 1
 
 
+def campaign_main(args) -> int:
+    ok = True
+    if args.device != "cpu":
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60).stdout.strip(), flush=True)
+    for ranks in args.ranks:
+        with tempfile.TemporaryDirectory() as tmp:
+            res = certify_campaign(ranks, tmp, args.device,
+                                   args.config or "mesh", timeout=400)
+        print(describe_campaign(res), flush=True)
+        print(f"  rank 0's summary: {res['summary']}", flush=True)
+        print(f"  one process's summary: {res['ref_summary']}", flush=True)
+        print(f"  kernel launches per rank {res['launches']}, one process "
+              f"{res['ref_launches']}; peak GiB per rank {res['peak_gib']}, "
+              f"one process {res['ref_peak_gib']}", flush=True)
+        ok &= res["ok"]
+    return 0 if ok else 1
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--ranks", type=int, nargs="*", default=[2, 4])
@@ -390,20 +634,38 @@ def main(argv=None) -> int:
     p.add_argument("--pose_noise", type=float, default=0.0)
     p.add_argument("--grad_clip", type=float, default=None)
     p.add_argument("--device", default="cpu")
-    p.add_argument("--config", default="tiny", choices=["tiny", "op"])
+    p.add_argument("--config", default=None, choices=["tiny", "op", "mesh"],
+                   help="tiny (default), op; mesh (--campaign's default)")
     p.add_argument("--cli", action="store_true",
                    help="certify the train CLI under torchrun's environment")
+    p.add_argument("--campaign", action="store_true",
+                   help="certify the campaign's --mesh arm under torchrun's "
+                        "environment")
+    p.add_argument("--campaign_worker", action="store_true",
+                   help=argparse.SUPPRESS)
+    p.add_argument("--steps", type=int, default=CAMPAIGN_STEPS,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--eval_every", type=int, default=CAMPAIGN_EVAL,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--backend", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--root", default="", help=argparse.SUPPRESS)
     p.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--rank", type=int, default=0, help=argparse.SUPPRESS)
     p.add_argument("--world", type=int, default=1, help=argparse.SUPPRESS)
     p.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
     p.add_argument("--out", default="", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
-    if args.worker:
-        worker(args)
+    if args.campaign_worker:
+        campaign_worker(args)
         return 0
     if args.device == "cpu":
         torch.set_num_threads(1)
+    if args.campaign:
+        return campaign_main(args)
+    args.config = args.config or "tiny"
+    if args.worker:
+        worker(args)
+        return 0
     if args.cli:
         return cli_main(args)
     cases = ([args.invalid_lane] if args.invalid_lane is not None

@@ -84,39 +84,13 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _init_distributed(args):
-    """``(rank, world)`` of a torchrun launch under ``--multi_device``,
-    the process group initialized from torchrun's environment (NCCL on the
-    cards, gloo on the CPU); ``(0, 1)`` for one process. Sets
-    ``args.device`` to this rank's card."""
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if world == 1:
-        if args.multi_device:
-            print("--multi_device: one process, so the single-device train "
-                  "step (launch with torchrun for data parallelism)")
-        return 0, 1
-    if not args.multi_device:
-        raise ValueError(f"launched as {world} processes (WORLD_SIZE): pass "
-                         f"--multi_device to train data parallel")
-    if args.batch_size % world:
-        raise ValueError(f"--batch_size {args.batch_size} does not divide "
-                         f"over the {world} ranks")
-    import torch
-    import torch.distributed as dist
-
-    if args.device == "cuda":
-        args.device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
-    if args.device != "cpu":
-        # NCCL's communicator and every op without a device land here
-        torch.cuda.set_device(args.device)
-    backend = "gloo" if args.device == "cpu" else "nccl"
-    dist.init_process_group(backend, init_method="env://")
-    return dist.get_rank(), world
-
-
 def main(argv=None):
+    from neuralrgbd_tpu_torch.parallel.launch import init_distributed
+
     args = build_parser().parse_args(argv)
-    rank, world = _init_distributed(args)
+    rank, world, args.device = init_distributed(
+        args.multi_device, "--multi_device", args.batch_size, "--batch_size",
+        args.device)
     try:
         return _train(args, rank, world)
     finally:

@@ -1,5 +1,6 @@
-"""Model and training configuration (copies of ``neuralrgbd_tpu/config.py``'s
-``ModelConfig`` and ``TrainConfig``).
+"""Model, data and training configuration (copies of
+``neuralrgbd_tpu/config.py``'s ``ModelConfig``, ``DataConfig`` and
+``TrainConfig``).
 
 The port keeps its own copies so that it imports nothing of the JAX package;
 ``tests/test_torch_standalone.py`` holds them equal to the originals, field
@@ -9,7 +10,7 @@ for field and property for property.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -101,6 +102,18 @@ class ModelConfig:
     def kvnet_in_channels(self) -> int:
         # KVNET.py:75: 3*(t_win_r*2+1) + 1  (V warped RGB + ref RGB + dpv diff)
         return 3 * (2 * self.t_win_r + 1) + 1
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    dataset: str = "scannet"       # scannet | 7scenes | kitti | single_folder
+    data_root: str = "/datasets/scan-net-5-frame"
+    split_txt: Optional[str] = None
+    img_size: Tuple[int, int] = (384, 256)   # (W, H)
+    dpv_scale: float = 0.25        # resize_dmap
+    frame_interval: int = 5        # ScanNet: multiples of 5
+    dat_index_step: int = 1        # 7Scenes test uses 3
+    crop_w: Optional[int] = None   # KITTI: 384
 
 
 @dataclasses.dataclass(frozen=True)

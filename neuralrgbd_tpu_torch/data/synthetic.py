@@ -122,20 +122,91 @@ def write_scannet_scene(root: str, n_frames: int = 10,
     return scene
 
 
+def _scene_writer(kind: str, i: int):
+    """The writer a ``synthetic_dataset`` root of ``kind`` uses for scene
+    ``i``."""
+    if kind == "curved" or (kind == "mixed3" and i % 3 == 2):
+        return write_curved_scene
+    if (kind == "multi" or (kind == "mixed" and i % 2 == 1)
+            or (kind == "mixed3" and i % 3 == 1)):
+        return write_multiplane_scene
+    return write_plane_scene
+
+
 def write_scene(root: str, i: int, kind: str, n_frames: int) -> str:
     """Scene ``i`` of a ``synthetic_dataset`` root of ``kind``, written by
     the writer the kind picks for that index unless it is there already
     (a scene is a function of its index, so a reader of a few scenes
-    writes only those)."""
-    scene = os.path.join(root, f"scene{i:04d}_00")
+    writes only those).
+
+    The scene is written under a hidden temporary directory of ``root``
+    and renamed into place whole, so a scene directory that exists is a
+    finished one: a writer killed halfway leaves only the temporary
+    directory, and of two writers of one scene (processes, data-parallel
+    ranks) the first rename wins and the other discards its copy."""
+    import shutil
+    import tempfile
+
+    name = f"scene{i:04d}_00"
+    scene = os.path.join(root, name)
     if os.path.isdir(scene):
         return scene
-    if kind == "curved" or (kind == "mixed3" and i % 3 == 2):
-        return write_curved_scene(root, i, n_frames=n_frames)
-    if (kind == "multi" or (kind == "mixed" and i % 2 == 1)
-            or (kind == "mixed3" and i % 3 == 1)):
-        return write_multiplane_scene(root, i, n_frames=n_frames)
-    return write_plane_scene(root, i, n_frames=n_frames)
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix=f".{name}.", dir=root)
+    try:
+        _scene_writer(kind, i)(tmp, i, n_frames=n_frames)
+        try:
+            os.rename(os.path.join(tmp, name), scene)
+        except OSError:
+            if not os.path.isdir(scene):   # not lost to another writer
+                raise
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return scene
+
+
+def write_scenes(root: str, indices, kind: str, n_frames: int,
+                 workers: Optional[int] = None) -> list:
+    """``write_scene`` for each of ``indices``, the absent ones split over
+    ``workers`` Python processes, by default one per thread torch was
+    given (the caller's share of the host's cores: ``torch.
+    set_num_threads``, ``OMP_NUM_THREADS``); here when one is absent or
+    there is one worker. Returns the scene directories."""
+    import torch
+
+    absent = [i for i in indices
+              if not os.path.isdir(os.path.join(root, f"scene{i:04d}_00"))]
+    workers = min(len(absent), workers or torch.get_num_threads())
+    if workers > 1:
+        import subprocess
+        import sys
+
+        # fresh interpreters, not forks: the caller may hold CUDA and
+        # threads, and its main module need not be importable
+        repo = os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep
+                   .join([repo] + [p for p in [os.environ.get("PYTHONPATH")]
+                                   if p]))
+        code = ("import sys\n"
+                "from neuralrgbd_tpu_torch.data.synthetic import write_scene\n"
+                "for i in sys.argv[4:]:\n"
+                "    write_scene(sys.argv[1], int(i), sys.argv[2], "
+                "int(sys.argv[3]))\n")
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", code, root, kind, str(n_frames),
+             *map(str, absent[k::workers])], env=env)
+            for k in range(workers)]
+        try:
+            failed = [p.args[6:] for p in procs if p.wait()]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if failed:
+            raise RuntimeError(f"writing scenes {failed} under {root} failed")
+    return [write_scene(root, i, kind, n_frames) for i in indices]
 
 
 def synthetic_dataset(cfg: ModelConfig, img_size_wh=(384, 256),

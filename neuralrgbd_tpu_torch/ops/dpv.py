@@ -17,25 +17,58 @@ from neuralrgbd_tpu_torch.ops.camera import Camera, unit_rays
 from neuralrgbd_tpu_torch.ops.sampling import grid_sample_3d, normalized_to_pixel
 
 
-def depth_regression(dpv: torch.Tensor, d_candi: torch.Tensor) -> torch.Tensor:
-    """E[d] over a log-DPV: (..., D, H, W) -> (..., H, W)."""
-    return torch.einsum("...dhw,d->...hw", dpv.exp(), d_candi)
+def depth_regression(dpv: torch.Tensor, d_candi: torch.Tensor,
+                     log_scale: bool = True) -> torch.Tensor:
+    """E[d] = sum_d p(d) d over a DPV, log-scale unless ``log_scale`` is
+    False (then ``dpv`` holds the probabilities): (..., D, H, W) ->
+    (..., H, W)."""
+    p = dpv.exp() if log_scale else dpv
+    return torch.einsum("...dhw,d->...hw", p, d_candi)
 
 
 def depth_variance(dpv: torch.Tensor, depth_mean: torch.Tensor,
-                   d_candi: torch.Tensor, d_sigma: float = 1.0) -> torch.Tensor:
-    """The reference's depth variance over a log-DPV (mutils/misc.py:550-572):
+                   d_candi: torch.Tensor, log_scale: bool = True,
+                   d_sigma: float = 1.0) -> torch.Tensor:
+    """The reference's depth variance (mutils/misc.py:550-572):
     mean_d (p(d) * d - E[d])^2 / (2 d_sigma^2), with p(d) * d, not d,
-    inside the square, as the L1 training loss regularizes it.
-    (..., D, H, W) -> (..., H, W)."""
+    inside the square, as the L1 training loss regularizes it; ``dpv`` is
+    log-scale unless ``log_scale`` is False. (..., D, H, W) -> (..., H, W)."""
+    p = dpv.exp() if log_scale else dpv
     D = d_candi.shape[0]
-    sq = (dpv.exp() * d_candi[:, None, None] - depth_mean[..., None, :, :]) ** 2
+    sq = (p * d_candi[:, None, None] - depth_mean[..., None, :, :]) ** 2
     return sq.sum(dim=-3) / (2.0 * d_sigma ** 2) / D
 
 
-def confidence_map(dpv: torch.Tensor) -> torch.Tensor:
-    """Probability of the argmax depth bin: exp(max_d log-DPV)."""
-    return dpv.amax(dim=-3).exp()
+def confidence_map(dpv: torch.Tensor, log_scale: bool = True) -> torch.Tensor:
+    """Probability of the argmax depth bin: exp(max_d log-DPV), or max_d
+    of the probabilities when ``log_scale`` is False."""
+    m = dpv.amax(dim=-3)
+    return m.exp() if log_scale else m
+
+
+def dpv_statistics(dpv: torch.Tensor, d_candi: torch.Tensor,
+                   statistics=("E_mean", "variance", "max", "min"),
+                   log_scale: bool = True) -> torch.Tensor:
+    """Per-pixel DPV feature maps (mutils/misc.py:574-608), stacked in the
+    order of ``statistics``: E[d], the depth variance, and the max and min
+    of the probabilities. (..., D, H, W) -> (..., len(statistics), H, W)."""
+    p = dpv.exp() if log_scale else dpv
+    feats, mean = [], None
+    for name in statistics:
+        if name in ("E_mean", "variance") and mean is None:
+            mean = depth_regression(dpv, d_candi, log_scale)
+        if name == "E_mean":
+            feats.append(mean)
+        elif name == "variance":
+            feats.append(depth_variance(dpv, mean, d_candi,
+                                        log_scale=log_scale))
+        elif name == "max":
+            feats.append(p.amax(dim=-3))
+        elif name == "min":
+            feats.append(p.amin(dim=-3))
+        else:
+            raise ValueError(f"unknown dpv statistic: {name}")
+    return torch.stack(feats, dim=-3)
 
 
 def _set_vol_border(vol: torch.Tensor, border_val: float) -> torch.Tensor:

@@ -1,6 +1,5 @@
 """Training campaign at the full operating point (counterpart of the JAX
-package's ``tools/train_campaign.py``, with its flags but ``--mesh``, plus
-``--device``).
+package's ``tools/train_campaign.py``, with its flags, plus ``--device``).
 
 Trains the KV-Net on seeded multi-view-consistent synthetic scenes at the
 reference operating point (384x256 RGB, D=64 on a 96x64 grid, 4 source
@@ -27,7 +26,24 @@ lane. Runs on the CUDA card unless ``--device cpu``. Training runs
 ``train/loop.train_epochs`` (the forward on the plain ops, the carry on
 the resample kernel); a holdout frame runs ``infer/step.make_infer_step``
 on the kernels: the sweep once and the resample once. The scenes are
-written once, under the temporary directory, as JAX's tool writes them.
+written once, under the temporary directory, as JAX's tool writes them
+(the absent ones over a pool of processes, each renamed into place whole).
+
+``--mesh`` is JAX's data-parallel arm at its reduced point:
+``ModelConfig(ndepth=32, feature_dim=32, kv_feature_dim=32)`` (the
+deviation flags do not reach it), 128x96, 8 ``plane`` training scenes and
+2 holdouts of 16 frames, 8 lanes a step. Launched by torchrun, each rank
+steps its block of the 8 lanes through ``parallel.
+make_sharded_train_step`` (NCCL, one card a rank; gloo with ``--device
+cpu``); in one process it is the single-process step at 8 lanes. Rank 0
+alone writes the scenes (the others wait at a barrier), evaluates and
+prints the ``EVAL`` lines, saves the best checkpoints and prints the
+summary, whose ``campaign`` is ``mesh-cpu`` or ``mesh-cuda``:
+
+  torchrun --nproc_per_node 4 -m neuralrgbd_tpu_torch.tools.train_campaign \\
+      --mesh --wide --max_steps 600
+  torchrun --nproc_per_node 2 -m neuralrgbd_tpu_torch.tools.train_campaign \\
+      --mesh --device cpu --max_steps 20
 """
 
 from __future__ import annotations
@@ -44,19 +60,27 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from neuralrgbd_tpu_torch.config import ModelConfig, TrainConfig
-from neuralrgbd_tpu_torch.data.synthetic import synthetic_dataset, write_scene
+from neuralrgbd_tpu_torch.data.synthetic import (synthetic_dataset,
+                                                 write_scenes)
 from neuralrgbd_tpu_torch.data.trajectory import window_batch, window_indices
 from neuralrgbd_tpu_torch.infer.metrics import MetricAccumulator, depth_metrics
 from neuralrgbd_tpu_torch.infer.step import (make_frame_features,
                                              make_infer_step)
 from neuralrgbd_tpu_torch.models.kvnet import KVNet
+from neuralrgbd_tpu_torch.parallel import (init_distributed,
+                                           make_sharded_train_step)
 from neuralrgbd_tpu_torch.train.loop import train_epochs, upload_batch
 from neuralrgbd_tpu_torch.train.step import TrainState, create_train_state
 from neuralrgbd_tpu_torch.utils.checkpoint import (latest_checkpoint,
                                                    restore_checkpoint,
                                                    save_checkpoint)
+
+# JAX's --mesh point (tools/train_campaign.py:80-83)
+MESH_CFG = ModelConfig(ndepth=32, feature_dim=32, kv_feature_dim=32)
+MESH_WH, MESH_TRAIN, MESH_FRAMES, MESH_LANES = (128, 96), 8, 16, 8
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -65,7 +89,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--epochs", type=int, default=None,
                    help="run whole epochs instead of a step budget")
     p.add_argument("--resume", action="store_true",
-                   help="restore the latest checkpoint under --save_dir")
+                   help="restore the latest checkpoint under --save_dir "
+                        "(every rank the same one)")
+    p.add_argument("--mesh", action="store_true",
+                   help="data parallel over the ranks of a torchrun launch "
+                        "at JAX's reduced point (8 lanes a step; NCCL, one "
+                        "card a rank; gloo with --device cpu); in one "
+                        "process, the single-process step at 8 lanes")
     p.add_argument("--lr", type=float, default=1e-4)
     p.add_argument("--save_dir", type=str, default="saved_models/campaign")
     p.add_argument("--eval_frames", type=int, default=None)
@@ -92,7 +122,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="train with per-frame feature-extractor BatchNorm "
                         "statistics (the cached-feature semantics)")
     p.add_argument("--device", type=str, default="cuda",
-                   help="the CUDA card by default, 'cpu' on request")
+                   help="the CUDA card by default (cuda:LOCAL_RANK under "
+                        "torchrun), 'cpu' on request")
     return p
 
 
@@ -106,12 +137,11 @@ def scene_root(kind: str, n_scenes: int, n_frames: int, width: int) -> str:
 def scene_trajectories(cfg: ModelConfig, kind: str, indices, root: str,
                        n_frames: int = 24, img_wh=(384, 256)) -> list:
     """The trajectories of scenes ``indices`` of a ``synthetic_dataset``
-    root, writing only those that are absent (``write_scene``): a gate on
+    root, writing only those that are absent (``write_scenes``): a gate on
     3 holdouts need not write the 48 training scenes."""
     from neuralrgbd_tpu_torch.data.scannet import make_trajectory
 
-    for i in indices:
-        write_scene(root, i, kind, n_frames)
+    write_scenes(root, indices, kind, n_frames)
     # the loader takes a scene's place among the root's scenes
     names = sorted(d for d in os.listdir(root) if d.startswith("scene"))
     return [make_trajectory(names.index(f"scene{i:04d}_00"), 5, root,
@@ -128,6 +158,9 @@ class Campaign:
     n_train: int
     holdouts: list                # one per geometry kind, never trained on
     state: TrainState
+    batch: int = 1                # lanes a step, over all ranks
+    rank: int = 0                 # this process in the data-parallel world
+    world: int = 1
     eval_model: Optional[KVNet] = None   # single-refine copy of the weights
     # filled by ``run``: (step, metrics) of each evaluation, in order, and
     # the path of each best checkpoint saved
@@ -156,20 +189,43 @@ def settings(args) -> tuple[argparse.Namespace, TrainConfig]:
     return args, tcfg
 
 
-def build(args, cfg: Optional[ModelConfig] = None, img_wh=(384, 256),
-          n_frames: int = 24, root: Optional[str] = None) -> Campaign:
+def build(args, cfg: Optional[ModelConfig] = None, img_wh=None,
+          n_frames: Optional[int] = None,
+          root: Optional[str] = None) -> Campaign:
     """The campaign's settings, scenes (written if absent) and
     ``TrainState`` (restored under ``--resume``). ``cfg``, ``img_wh``,
-    ``n_frames`` and ``root`` default to the operating point and JAX's
-    scene directory; the CPU tests pass smaller ones."""
+    ``n_frames`` and ``root`` default to the operating point (JAX's
+    reduced point under ``--mesh``) and JAX's scene directory; the CPU
+    tests pass smaller ones. In a data-parallel world (an initialized
+    default process group) rank 0 writes the scenes while the others wait
+    at a barrier."""
     args, tcfg = settings(args)
-    cfg = dataclasses.replace(cfg or ModelConfig(),
-                              knet_coarse_d=args.knet_coarse_d,
-                              fe_per_frame_bn=args.fe_per_frame_bn)
-    n_train = args.scenes or (48 if args.wide else 5)
-    kind = args.kind or ("mixed3" if args.wide else "plane")
+    if args.mesh:     # the deviation flags do not reach JAX's mesh point
+        cfg, batch = cfg or MESH_CFG, MESH_LANES
+        img_wh, n_frames = img_wh or MESH_WH, n_frames or MESH_FRAMES
+        n_train, kind = MESH_TRAIN, "plane"
+    else:
+        cfg = dataclasses.replace(cfg or ModelConfig(),
+                                  knet_coarse_d=args.knet_coarse_d,
+                                  fe_per_frame_bn=args.fe_per_frame_bn)
+        img_wh, n_frames, batch = img_wh or (384, 256), n_frames or 24, 1
+        n_train = args.scenes or (48 if args.wide else 5)
+        kind = args.kind or ("mixed3" if args.wide else "plane")
+    rank, world = ((dist.get_rank(), dist.get_world_size())
+                   if dist.is_initialized() else (0, 1))
     n_hold = 3 if kind == "mixed3" else 2
     root = root or scene_root(kind, n_train + n_hold, n_frames, img_wh[0])
+    if rank == 0:
+        # the host's other ranks wait at the barrier: their share of the
+        # cores writes too (torchrun gives each rank one thread)
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+        t0 = time.time()
+        write_scenes(root, range(n_train + n_hold), kind, n_frames,
+                     workers=torch.get_num_threads() * local)
+        print(f"scenes under {root} ({time.time() - t0:.1f} s to write the "
+              f"absent ones)", flush=True)
+    if world > 1:
+        dist.barrier()
     make_traj, _ = synthetic_dataset(cfg, img_size_wh=img_wh,
                                      n_scenes=n_train + n_hold,
                                      n_frames=n_frames, root=root, kind=kind)
@@ -177,7 +233,7 @@ def build(args, cfg: Optional[ModelConfig] = None, img_wh=(384, 256),
 
     device = torch.device(args.device)
     state = create_train_state(cfg, tcfg, device=device)
-    if device.type == "cuda":
+    if device.type == "cuda" and rank == 0:
         print(f"device: {torch.cuda.get_device_name(device)}", flush=True)
     if args.resume:
         ckpt = latest_checkpoint(args.save_dir)
@@ -185,9 +241,11 @@ def build(args, cfg: Optional[ModelConfig] = None, img_wh=(384, 256),
             raise FileNotFoundError(
                 f"--resume with no checkpoint under {args.save_dir}")
         state, extra = restore_checkpoint(ckpt, state)
-        print(f"resumed from {ckpt} at step {state.step} (cursor: {extra})",
-              flush=True)
-    return Campaign(args, cfg, tcfg, make_traj, n_train, holdouts, state)
+        if rank == 0:
+            print(f"resumed from {ckpt} at step {state.step} (cursor: "
+                  f"{extra})", flush=True)
+    return Campaign(args, cfg, tcfg, make_traj, n_train, holdouts, state,
+                    batch=batch, rank=rank, world=world)
 
 
 def eval_refs(traj, t_win_r: int, eval_frames: Optional[int] = None):
@@ -284,14 +342,26 @@ def evaluate(camp: Campaign, tag: str) -> dict:
 
 
 def run(args, train_step=None, on_save: Optional[Callable] = None,
-        **build_kw) -> tuple[Campaign, dict]:
+        **build_kw) -> tuple[Campaign, Optional[dict]]:
     """The whole campaign (``build``'s keywords pass through): returns the
     ``Campaign`` (its ``state`` trained, its ``evals`` and ``best_paths``
     filled) and the summary printed as the last line. ``train_step``
-    replaces ``make_train_step``'s (``train_epochs``); ``on_save(path,
-    state)`` is called after each best checkpoint is written."""
+    replaces the step ``train_epochs`` runs (``make_train_step``'s, or
+    ``make_sharded_train_step``'s in a data-parallel world); ``on_save(path,
+    state)`` is called after each best checkpoint is written.
+
+    In a data-parallel world every rank trains; rank 0 alone evaluates
+    (the others wait for it in the next step's all-reduce), saves the
+    checkpoints and returns the summary, the others ``None``."""
     camp = build(args, **build_kw)
     args, state = camp.args, camp.state
+    lead = camp.rank == 0
+    if camp.world > 1:
+        train_step = train_step or make_sharded_train_step(camp.cfg,
+                                                           camp.tcfg)
+        if lead:
+            print(f"DP over {camp.world} ranks ({dist.get_backend()}), "
+                  f"{camp.batch // camp.world} lanes each", flush=True)
 
     def evaluate_at(st):
         camp.state = st
@@ -299,11 +369,13 @@ def run(args, train_step=None, on_save: Optional[Callable] = None,
         camp.evals.append((st.step, m))
         return m
 
-    m0 = evaluate_at(state)
+    m0 = evaluate_at(state) if lead else None
     best = {"abs_rel": float("inf"), "step": state.step}
     eval_s = [0.0]
 
     def periodic_eval(st, total_iter):
+        if not lead:
+            return
         t = time.time()
         m = evaluate_at(st)
         if float(m["abs_rel"]) < best["abs_rel"]:
@@ -317,21 +389,27 @@ def run(args, train_step=None, on_save: Optional[Callable] = None,
             print(f"  new best abs_rel {best['abs_rel']:.4f} "
                   f"@ step {best['step']} (checkpointed)", flush=True)
         eval_s[0] += time.time() - t
+        print(f"  evaluation and checkpoint: {time.time() - t:.1f} s",
+              flush=True)
 
     step0, t0 = state.step, time.time()
     state = train_epochs(state, camp.cfg, camp.tcfg, camp.make_traj,
-                         camp.n_train, 1, train_step=train_step,
-                         save_dir=args.save_dir,
-                         max_steps=args.max_steps,
+                         camp.n_train, camp.batch, train_step=train_step,
+                         save_dir=args.save_dir if lead else None,
+                         max_steps=args.max_steps, verbose=lead,
                          eval_every=(args.eval_every if args.wide else None),
                          eval_fn=(periodic_eval if args.wide else None))
     dt = time.time() - t0
+    camp.state = state
+    if not lead:
+        return camp, None
     print(f"trained to step {state.step} in {dt:.0f}s", flush=True)
     m1 = evaluate_at(state)
     steps = state.step - step0
+    device = torch.device(args.device).type
     summary = {
-        "campaign": f"{torch.device(args.device).type}-"
-                    f"{'wide' if args.wide else 'full-op-point'}",
+        "campaign": (f"mesh-{device}" if args.mesh else
+                     f"{device}-{'wide' if args.wide else 'full-op-point'}"),
         "scenes": camp.n_train, "augment": bool(args.augment),
         "pose_noise": args.pose_noise,
         "steps": state.step,
@@ -340,6 +418,7 @@ def run(args, train_step=None, on_save: Optional[Callable] = None,
         "delta1": [round(float(m0["delta1"]), 4),
                    round(float(m1["delta1"]), 4)],
         "best": best if best["abs_rel"] < float("inf") else None,
+        "ranks": camp.world,
         # host clock: the loop's wall time, and per step without the
         # periodic evaluations and their checkpoints
         "train_s": round(dt, 1), "eval_s": round(eval_s[0], 1),
@@ -350,5 +429,20 @@ def run(args, train_step=None, on_save: Optional[Callable] = None,
     return camp, summary
 
 
+def main(argv=None) -> Optional[dict]:
+    """The command line: joins a torchrun launch under ``--mesh``
+    (``parallel.init_distributed``), runs the campaign, leaves the group;
+    returns rank 0's summary."""
+    args = build_parser().parse_args(argv)
+    _, world, args.device = init_distributed(
+        args.mesh, "--mesh", MESH_LANES if args.mesh else 1,
+        "--mesh: a batch of", args.device)
+    try:
+        return run(args)[1]
+    finally:
+        if world > 1:
+            dist.destroy_process_group()
+
+
 if __name__ == "__main__":
-    run(build_parser().parse_args())
+    main()

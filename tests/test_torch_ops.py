@@ -244,3 +244,33 @@ def test_dpv_helpers_match(rng):
     _close(dpv._set_vol_border(_t(lv), -2.5),
            jdpv._set_vol_border(jnp.asarray(lv), -2.5), atol=0)
     _close(dpv.uniform_dpv(8, 6, 10), jdpv.uniform_dpv(8, 6, 10), atol=1e-7)
+
+
+@pytest.mark.parametrize("log_scale", [True, False], ids=["log", "prob"])
+def test_dpv_statistics_and_log_scale_match(log_scale):
+    """``dpv_statistics`` (each statistic, and all four in JAX's default
+    order) and the ``log_scale`` argument of ``depth_regression``,
+    ``depth_variance`` and ``confidence_map``, on a log-DPV and on its
+    probabilities, against JAX's, at the ops' standard (rtol 1e-4, atol
+    1e-5: fp32 sums over D in another order)."""
+    lv = _dpv_setup(8, 6, 10, seed=3)[None].repeat(2, 0)    # (2, D, H, W)
+    vol = lv if log_scale else np.exp(lv)
+    d = np.linspace(0.5, 4.0, 8).astype(np.float32)
+    tv, jv, td, jd = _t(vol), jnp.asarray(vol), _t(d), jnp.asarray(d)
+    mean = dpv.depth_regression(tv, td, log_scale=log_scale)
+    jmean = jdpv.depth_regression(jv, jd, log_scale=log_scale)
+    _close(mean, jmean)
+    _close(dpv.depth_variance(tv, mean, td, log_scale=log_scale, d_sigma=0.7),
+           jdpv.depth_variance(jv, jmean, jd, log_scale=log_scale,
+                               d_sigma=0.7))
+    _close(dpv.confidence_map(tv, log_scale=log_scale),
+           jdpv.confidence_map(jv, log_scale=log_scale))
+    for stats in (("E_mean", "variance", "max", "min"), ("variance",),
+                  ("min", "E_mean")):
+        got = dpv.dpv_statistics(tv, td, stats, log_scale=log_scale)
+        assert got.shape == (2, len(stats), 6, 10)
+        _close(got, jdpv.dpv_statistics(jv, jd, stats, log_scale=log_scale))
+    _close(dpv.dpv_statistics(tv, td, log_scale=log_scale),
+           jdpv.dpv_statistics(jv, jd, log_scale=log_scale))
+    with pytest.raises(ValueError, match="unknown dpv statistic"):
+        dpv.dpv_statistics(tv, td, ("median",))

@@ -59,6 +59,7 @@ import neuralrgbd_tpu.infer.loop as jloop
 import neuralrgbd_tpu.infer.metrics as jmetrics
 import neuralrgbd_tpu.ops.camera as jcamera
 import neuralrgbd_tpu.utils.logging as jlogging
+from neuralrgbd_tpu.config import DataConfig as JDataConfig
 from neuralrgbd_tpu.config import ModelConfig as JModelConfig
 from neuralrgbd_tpu.config import TrainConfig as JTrainConfig
 from neuralrgbd_tpu.data.synthetic import synthetic_batch as jsynthetic_batch
@@ -77,7 +78,8 @@ import neuralrgbd_tpu_torch.infer.export as export
 import neuralrgbd_tpu_torch.infer.metrics as metrics
 import neuralrgbd_tpu_torch.ops.camera as camera
 import neuralrgbd_tpu_torch.utils.logging as logging_
-from neuralrgbd_tpu_torch.config import ModelConfig, TrainConfig
+from neuralrgbd_tpu_torch.config import (DataConfig, ModelConfig,
+                                         TrainConfig)
 from neuralrgbd_tpu_torch.data.synthetic import synthetic_batch
 from neuralrgbd_tpu_torch.data.trajectory import window_batch
 from neuralrgbd_tpu_torch.infer.loop import resolve_cache_features
@@ -112,6 +114,22 @@ def test_model_config_copy_equals_original(fields):
 def test_train_config_copy_equals_original(fields):
     assert dataclasses.asdict(TrainConfig(**fields)) == dataclasses.asdict(
         JTrainConfig(**fields))
+
+
+@pytest.mark.parametrize("fields", [
+    {}, dict(dataset="kitti", data_root="/data/kitti", img_size=(768, 256),
+             dpv_scale=0.5, frame_interval=1, dat_index_step=3, crop_w=384,
+             split_txt="splits/test.txt")],
+    ids=["defaults", "custom"])
+def test_data_config_copy_equals_original(fields):
+    """Field for field: the names, their order, the defaults and the
+    values, and the dataclass's frozen flag."""
+    got, want = DataConfig(**fields), JDataConfig(**fields)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert ([f.name for f in dataclasses.fields(DataConfig)]
+            == [f.name for f in dataclasses.fields(JDataConfig)])
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        got.dataset = "7scenes"
 
 
 @pytest.mark.parametrize("seed", [0, 7])
@@ -417,6 +435,7 @@ def test_the_parallel_package_is_checked():
     """``parallel/`` is among the files the two checks around read."""
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     assert {"neuralrgbd_tpu_torch/parallel/__init__.py",
+            "neuralrgbd_tpu_torch/parallel/launch.py",
             "neuralrgbd_tpu_torch/parallel/mesh.py"} <= names
 
 
