@@ -210,12 +210,28 @@ Phases, each printing its own lines:
    both ranks' final parameters equal, rank 0's abs_rel within 1e-3 of the one
    process's at each evaluation; one prediction launch per step per rank
    and one sweep and one prediction per holdout frame on rank 0; each
-   rank's ms per step and peak memory.
+   rank's ms per step and peak memory;
+27. the compiled programs (``infer.graph.StepGraph``: the step captured
+   in a CUDA graph per key and replayed per frame; phases 14, 16, 17, 20,
+   22 and 23 already run the loop graphed, its default at ``chunk_t >
+   1``): T=8 rollouts with ``graph=True`` equal bit for bit to the eager
+   ones on the exact, cached and ``fast_knet`` paths and the four heads
+   of phase 22, their kernels counted through the replays, the graphs
+   captured, their capture times and the peak memory of both;
+   ``cli.test_kvnet`` at ``--chunk_t 32`` (graphed) against ``--chunk_t
+   1`` (eager): every file equal, 35 sweep and 35 prediction launches
+   through the replays; 0 main-thread host syncs in the steady graphed
+   frames (after the 2 captures); phase 23's graphed lockstep lanes equal
+   the eager lockstep run's; and ms per frame of the loop graphed against
+   eager (``chunk_t`` 32 both), three turns each, with the host ms per
+   step call, the run's wall time, the graphs, the capture ms per key and
+   the peak memory. Alone it writes phase 14's scene and checkpoint and
+   phase 23's lanes itself.
 
 Then one ``{"kernels": [...]}`` line (the conv kernel's launches: phase
-10's, phase 17's and phase 22's fast path; the sweep's and the
-resample's add phases 19-26, phase 24's and 26's counted in the rank
-processes)
+10's, phase 17's, phase 22's and phase 27's fast path; the sweep's and the
+resample's add phases 19-27, phase 24's and 26's counted in the rank
+processes, phase 27's through the graphs' replays)
 and, last, the ``{"ok": true, ...}`` line. Any failed check exits non-zero before those two lines. A kernel's
 ``ms`` in that line is its ``device_ms``. Every
 kernel's ``bound_ms`` is computed here from the shapes it was timed at:
@@ -256,6 +272,7 @@ from neuralrgbd_tpu_torch.data.synthetic import (synthetic_batch,
                                                  write_plane_scene,
                                                  write_scannet_scene)
 from neuralrgbd_tpu_torch.data.trajectory import window_batch
+from neuralrgbd_tpu_torch.infer import graph as graph_mod
 from neuralrgbd_tpu_torch.infer import loop as loop_mod
 from neuralrgbd_tpu_torch.infer import rollout as rollout_mod
 from neuralrgbd_tpu_torch.infer import step as step_mod
@@ -1071,11 +1088,12 @@ def phase_fast_timing(model, device) -> dict:
     return {"per_frame": per_frame, "conv3d": row}
 
 
-def sync_sites(fn) -> dict:
+def sync_sites(fn, tag=None) -> dict:
     """{(place in the port or this script, message): count} of the host
     syncs ``fn`` makes on the main thread, under
     ``torch.cuda.set_sync_debug_mode("warn")``; the place is the innermost
-    frame of the Python stack in either."""
+    frame of the Python stack in either. With ``tag``, a callable, each
+    key starts with what it returns when the sync is seen."""
     sites: dict = {}
 
     def record(message, category, filename, lineno, file=None, line=None):
@@ -1088,6 +1106,8 @@ def sync_sites(fn) -> dict:
         where = (f"{frames[-1].filename.split('/')[-1]}:{frames[-1].lineno} "
                  f"{frames[-1].line}") if frames else f"{filename}:{lineno}"
         key = (where, str(message))
+        if tag is not None:
+            key = (tag(), *key)
         sites[key] = sites.get(key, 0) + 1
 
     torch.cuda.synchronize()
@@ -1370,10 +1390,9 @@ class ThreadTimes(contextlib.AbstractContextManager):
         setattr(self.module, self.name, self.fn)
 
 
-def phase_loop(model, device, tmp: str) -> dict:
-    print(f"phase 14: the production loop through cli.test_kvnet, "
-          f"{SCENE_FRAMES}-frame write_plane_scene at 640x480 read at "
-          f"{IMG_HW[1]}x{IMG_HW[0]}", flush=True)
+def scene_and_checkpoint(model, tmp: str) -> tuple[str, str]:
+    """Phase 14's 40-frame scene on disk and ``model``'s weights saved as a
+    reference-style ``.tar``: (dataset root, checkpoint path)."""
     root = os.path.join(tmp, "scenes")
     t0 = time.perf_counter()
     write_plane_scene(root, 0, n_frames=SCENE_FRAMES)
@@ -1382,6 +1401,14 @@ def phase_loop(model, device, tmp: str) -> dict:
                                for k, v in model.state_dict().items()}}, ckpt)
     print(f"  wrote the scene and the checkpoint in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return root, ckpt
+
+
+def phase_loop(model, device, tmp: str) -> dict:
+    print(f"phase 14: the production loop through cli.test_kvnet, "
+          f"{SCENE_FRAMES}-frame write_plane_scene at 640x480 read at "
+          f"{IMG_HW[1]}x{IMG_HW[0]}", flush=True)
+    root, ckpt = scene_and_checkpoint(model, tmp)
 
     for mod in KERNELS.values():
         mod.launches = 0
@@ -2924,6 +2951,7 @@ def phase_lockstep(model, device, loop_info: dict, tmp: str) -> dict:
         counts = loop_mod.run_trajectories_parallel(model, CFG, trajs, dirs,
                                                     verbose=False)
     launches = read_launches()
+    loop_info["lockstep"] = trajs, dirs     # phase 27's graphed run
     want = [valid_windows(t) for t in trajs]
     frames = max(LOCK_FRAMES) - 2 * CFG.t_win_r - 1
     check(counts == want, f"per-lane exported frames {counts} (the valid "
@@ -3304,6 +3332,179 @@ def phase_mesh(device, errs) -> dict:
     return launches
 
 
+class CallCount:
+    """Wraps ``make_infer_step`` where ``module`` calls it: ``calls`` is
+    the number of step calls started so far (a ``sync_sites`` tag)."""
+
+    def __init__(self, module):
+        self.module, self.make, self.calls = module, module.make_infer_step, 0
+
+    def __enter__(self):
+        def make(*args, **kwargs):
+            step = self.make(*args, **kwargs)
+
+            def counted(*a, **k):
+                self.calls += 1
+                return step(*a, **k)
+            return counted
+
+        self.module.make_infer_step = make
+        return self
+
+    def __exit__(self, *exc):
+        self.module.make_infer_step = self.make
+
+
+def peak_gib() -> float:
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def phase_graph(model, device, tmp: str, loop_info=None) -> dict:
+    """Phase 27. Alone (``loop_info`` None), it writes phase 14's scene
+    and checkpoint and phase 23's lanes itself."""
+    print(f"phase 27: the compiled programs as CUDA graphs (infer.graph."
+          f"StepGraph) at {IMG_HW[1]}x{IMG_HW[0]}", flush=True)
+    t_phase = time.perf_counter()
+    launches = {k: 0 for k in KERNELS}
+    if loop_info is None:
+        root, ckpt = scene_and_checkpoint(model, tmp)
+        traj = make_trajectory(0, 5, root, img_size_wh=IMG_HW[::-1],
+                               d_candi=CFG.d_candi)
+        loop_info = {"root": root, "ckpt": ckpt,
+                     "windows": rollout_windows(traj, device)}
+    if "lockstep" not in loop_info:
+        trajs = write_lanes(os.path.join(tmp, "lockstep"), LOCK_FRAMES,
+                            invalid=LOCK_INVALID)
+        dirs = [os.path.join(tmp, "lock", f"lane{i}")
+                for i in range(len(trajs))]
+        loop_mod.run_trajectories_parallel(model, CFG, trajs, dirs,
+                                           verbose=False)
+        loop_info["lockstep"] = trajs, dirs
+
+    # T=8 rollouts, graphed against eager, bit for bit, on every path
+    frames = frames_on(device, T)
+    windows = {k: v[:T] for k, v in loop_info["windows"].items()}
+    paths = [("exact", CFG, model, frames, {}),
+             ("cached", CFG, model, windows, {"cache_features": True}),
+             ("fast_knet", CFG, model, frames, {"fast_knet": True})]
+    paths += [(name, head_cfg(name), None, frames, {}) for name in HEADS]
+    for name, cfg, m, fr, kw in paths:
+        m = m or KVNet(cfg, device=device, seed=SEED, single_refine=True)
+        torch.cuda.reset_peak_memory_stats()
+        eager = make_rollout(cfg, **kw)(m, fr, bv0_on(device), [False])
+        eager_peak = peak_gib()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        start = len(graph_mod.captures)
+        got = make_rollout(cfg, graph=True, **kw)(m, fr, bv0_on(device),
+                                                  [False])
+        graph_peak = peak_gib()
+        counted = read_launches()
+        caps = graph_mod.captures[start:]
+        want = {"sweep_fused": T, "resample": T,
+                "conv3d": 10 * (T - 1) if kw.get("fast_knet") else 0}
+        for k in KERNELS:
+            launches[k] += counted[k]
+        check(counted == want and all(
+            torch.equal(a, b) for a, b in zip(got[:2], eager[:2])),
+            f"{name}: the graphed T={T} rollout equals the eager one bit "
+            f"for bit (max |depth diff| {max_err(got[0], eager[0]):.3e}); "
+            f"launches through the replays {counted} (expected {want}); "
+            f"{len(caps)} graphs captured in "
+            f"{' / '.join(f'{c.ms:.1f}' for c in caps)} ms; peak "
+            f"{graph_peak:.2f} GiB graphed vs {eager_peak:.2f} eager")
+        del m, got, eager
+
+    # the CLI at its default --chunk_t 32 (graphed) against --chunk_t 1
+    root, ckpt = loop_info["root"], loop_info["ckpt"]
+    outs = {}
+    for name, extra in (("graphed", []), ("eager", ["--chunk_t", "1"])):
+        reset_launches()
+        _, out = quiet(cli_test_kvnet.main, loop_args(
+            root, ckpt, os.path.join(tmp, f"cli_{name}")) + extra)
+        counted = read_launches()
+        outs[name] = os.path.join(tmp, f"cli_{name}", "loop_0")
+        captured = [ln for ln in out.splitlines() if "graph(s)" in ln]
+        check(counted == {"sweep_fused": T_LOOP, "resample": T_LOOP,
+                          "conv3d": 0},
+              f"cli.test_kvnet {' '.join(extra) or '(chunk_t 32)'}: "
+              f"launches {counted} (expected {T_LOOP} sweeps and "
+              f"{T_LOOP} resamples); {captured or 'no graph captured'}")
+        if name == "graphed":
+            for k in KERNELS:
+                launches[k] += counted[k]
+    diff = pgm_diff(outs["graphed"], outs["eager"])
+    check(diff == 0 and same_files(outs["graphed"], outs["eager"],
+                                   os.listdir(outs["eager"])),
+          f"every file of the graphed CLI equals the eager CLI's "
+          f"(max |diff| {diff} unit(s) over {T_LOOP} frames)")
+
+    # host syncs per steady graphed frame: after the 2 captures
+    traj = make_trajectory(0, 5, root, img_size_wh=IMG_HW[::-1],
+                           d_candi=CFG.d_candi)
+    with CallCount(loop_mod) as calls:
+        sites = sync_sites(lambda: loop_mod.run_trajectory(
+            model, CFG, traj, os.path.join(tmp, "graph_sync"),
+            verbose=False), tag=lambda: calls.calls)
+    steady = {k: n for k, n in sites.items() if k[0] > 2}
+    check(not steady, f"0 main-thread host syncs in the {T_LOOP - 2} steady "
+          f"graphed frames ({sum(steady.values())}: {list(steady)[:3]}); "
+          f"around the 2 captures: {sum(sites.values())} "
+          f"{sorted({k[1] for k in sites})[:3]}")
+
+    # the lockstep loop of phase 23: graphed lanes equal eager lanes
+    trajs, dirs = loop_info["lockstep"]
+    eager_dirs = [d + "_eager" for d in dirs]
+    start = len(graph_mod.captures)
+    loop_mod.run_trajectories_parallel(model, CFG, trajs, eager_dirs,
+                                       verbose=False, graph=False)
+    check(len(graph_mod.captures) == start and all(
+        same_files(a, b, os.listdir(b)) for a, b in zip(dirs, eager_dirs)),
+          f"phase 23's graphed lockstep run: each of its {len(dirs)} lanes "
+          f"equals the eager lockstep run's, bit for bit")
+
+    # ms per frame, graphed against eager, in turns (chunk_t 32 both)
+    runs = {True: [], False: []}
+    for turn in range(3):
+        for graph in (True, False):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = len(graph_mod.captures)
+            with StepProbe(loop_mod) as p:
+                t0 = time.perf_counter()
+                loop_mod.run_trajectory(
+                    model, CFG, traj,
+                    os.path.join(tmp, f"graph_t{turn}_{graph}"),
+                    verbose=False, graph=graph)
+                wall = time.perf_counter() - t0
+            runs[graph].append({
+                "period": statistics.median(p.frame_ms()[1:]),
+                "host": statistics.median(p.host_ms[2:]),
+                "wall": wall, "peak": peak_gib(),
+                "captures": [c.ms for c in graph_mod.captures[start:]]})
+    med = {g: statistics.median(r["period"] for r in v)
+           for g, v in runs.items()}
+    for graph, rs in runs.items():
+        def turns(key: str, digits: int) -> str:
+            return " / ".join(f"{r[key]:.{digits}f}" for r in rs)
+        print(f"  {CARD[0]}: {'graphed' if graph else 'eager'} loop, ms per "
+              f"frame (frames 2..{T_LOOP - 1}, CUDA events after each step) "
+              f"{turns('period', 3)}; host ms per step call "
+              f"{turns('host', 3)}; run {turns('wall', 2)} s; peak "
+              f"{turns('peak', 2)} GiB; graphs "
+              f"{[len(r['captures']) for r in rs]}, capture ms per key "
+              f"{[[round(c, 1) for c in r['captures']] for r in rs]}",
+              flush=True)
+    print(f"  graphed {med[True]:.3f} vs eager {med[False]:.3f} ms per "
+          f"frame ({100 * (med[True] / med[False] - 1):+.1f}%): the loop's "
+          f"default at chunk_t > 1 is the "
+          f"{'graphed' if med[True] < med[False] else 'EAGER'} step by "
+          f"these turns", flush=True)
+    print(f"  phase 27: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     device = phase_device()
@@ -3337,7 +3538,8 @@ def main() -> int:
                      phase_lockstep(model, device, loop_info, tmp),
                      phase_dp(device),
                      phase_campaign(device, tmp),
-                     phase_mesh(device, errs)):
+                     phase_mesh(device, errs),
+                     phase_graph(model, device, tmp, loop_info)):
             for name, n in path.items():
                 launches[name] += n
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of command "

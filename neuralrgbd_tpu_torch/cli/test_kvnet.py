@@ -55,7 +55,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "on --device: one step call per frame for all of "
                         "them (infer.loop.run_trajectories_parallel)")
     p.add_argument("--chunk_t", type=int, default=32,
-                   help="frames per copy of the maps to the host")
+                   help="frames per copy of the maps to the host; above 1 "
+                        "each step replays its compiled program (a CUDA "
+                        "graph per key; 1 = per-frame eager stepping)")
     p.add_argument("--knet_coarse_d", type=int, default=1,
                    help="run the K-Net gain at D/this (accuracy-gated "
                         "deviation, PERF.md 'Coarse-D K-Net'; 1 = exact "

@@ -625,13 +625,23 @@ extern "C" int conv3d_launch(const void* x, const void* w, void* out,
                              int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(conv3d_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
+  // per device, once: the SM count and the shared-memory attribute, so
+  // that a launch under a CUDA graph's capture sets no attribute
+  constexpr int MAX_DEVICES = 64;
+  static int sms_of[MAX_DEVICES] = {};
+  if (device < 0 || device >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (sms_of[device] == 0) {
+    int sms = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(conv3d_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    sms_of[device] = sms;
+  }
+  const int sms = sms_of[device];
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return ENCODE_MISSING;
   // x as a 4-D tensor, innermost first: (C, W, H, D); one box is 64

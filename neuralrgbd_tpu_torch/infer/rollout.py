@@ -19,7 +19,8 @@ def make_rollout(cfg: ModelConfig, kernels: bool = True,
                  cache_features: Optional[bool] = None,
                  coarse_knet: Optional[int] = None,
                  paired_knet: Optional[bool] = None,
-                 packed_fe: Optional[bool] = None):
+                 packed_fe: Optional[bool] = None,
+                 graph: bool = False):
     """Returns ``rollout(model, frames_batch, bv_predict0, bv_valid0)``.
 
     frames_batch: dict of the step's batch tensors with a leading time axis
@@ -40,15 +41,24 @@ def make_rollout(cfg: ModelConfig, kernels: bool = True,
     around ref t). None, the default, resolves as JAX's auto default does
     on every backend but a TPU: off, for any weights (JAX also resolves
     torch-imported weights off, ``_auto_cache_features``).
+
+    ``graph=True`` is the counterpart of JAX's ``jit=True`` scan: a Python
+    loop of replays of the step's captured programs (``make_infer_step(
+    graph=True)``), two keys per lane count, frame 0's carry validity and
+    the valid carry of every later frame; each step's input carry is the
+    last step's static output, copied into the static input by the replay.
+    The cached rollout's extractor is graphed too (``make_frame_features(
+    graph=True)``).
     """
     packing = dict(paired_knet=paired_knet, packed_fe=packed_fe)
     if cache_features:
         return _make_cached_rollout(cfg, make_infer_step(
             cfg, kernels=kernels, fast_knet=fast_knet, tf32=tf32,
-            coarse_knet=coarse_knet, with_features=True, **packing),
-            make_frame_features(tf32))
+            coarse_knet=coarse_knet, with_features=True, graph=graph,
+            **packing), make_frame_features(tf32, graph=graph))
     step = make_infer_step(cfg, kernels=kernels, fast_knet=fast_knet,
-                           tf32=tf32, coarse_knet=coarse_knet, **packing)
+                           tf32=tf32, coarse_knet=coarse_knet, graph=graph,
+                           **packing)
 
     def rollout(model, frames_batch, bv_predict0, bv_valid0):
         bv_pred, valid = bv_predict0, list(bv_valid0)
@@ -57,9 +67,10 @@ def make_rollout(cfg: ModelConfig, kernels: bool = True,
             out = step(model, {k: v[t] for k, v in frames_batch.items()},
                        bv_pred, valid)
             bv_pred, valid = out.bv_predict, [True] * len(valid)
-            depths.append(out.depth)
-            confs.append(out.confidence)
-        return torch.stack(depths), torch.stack(confs), bv_pred
+            # copies: a graphed step overwrites its outputs at its next call
+            depths.append(out.depth.clone())
+            confs.append(out.confidence.clone())
+        return torch.stack(depths), torch.stack(confs), bv_pred.clone()
 
     return rollout
 
@@ -73,7 +84,8 @@ def _make_cached_rollout(cfg: ModelConfig, step, fe1):
     order = [*range(r), *range(r + 1, 2 * r + 1), r]
 
     def featurize(model, frames):                 # (N, H, W, 3) -> per lane
-        return [fe1(model, f) for f in frames]
+        # clones: a graphed extractor overwrites its outputs at each call
+        return [tuple(x.clone() for x in fe1(model, f)) for f in frames]
 
     def rollout(model, frames_batch, bv_predict0, bv_valid0):
         srcs0, ref0 = frames_batch["srcs"][0], frames_batch["ref"][0]
@@ -94,8 +106,8 @@ def _make_cached_rollout(cfg: ModelConfig, step, fe1):
             out = step(model, frame, bv_pred, valid, feats)
             cache.pop(0)
             bv_pred, valid = out.bv_predict, [True] * len(valid)
-            depths.append(out.depth)
-            confs.append(out.confidence)
-        return torch.stack(depths), torch.stack(confs), bv_pred
+            depths.append(out.depth.clone())
+            confs.append(out.confidence.clone())
+        return torch.stack(depths), torch.stack(confs), bv_pred.clone()
 
     return rollout

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from neuralrgbd_tpu_torch.config import ModelConfig
+from neuralrgbd_tpu_torch.infer.graph import StepGraph
 from neuralrgbd_tpu_torch.models.kvnet import KVNet, check_supported
 from neuralrgbd_tpu_torch.models.layers import upsample_bilinear_ac
 from neuralrgbd_tpu_torch.ops.camera import Camera
@@ -83,7 +84,7 @@ def step_numerics(tf32: bool):
         cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic = saved
 
 
-def make_frame_features(tf32: bool = False):
+def make_frame_features(tf32: bool = False, graph: bool = False):
     """Returns ``fe1(model, frame (H, W, 3)) -> (layer1 (32, H/2, W/2),
     feat (F, h, w))``: the feature extractor on one frame alone, so with
     B=1 BatchNorm statistics, in the step's numerics (``step_numerics``).
@@ -94,6 +95,11 @@ def make_frame_features(tf32: bool = False):
     (basic.py:245-252), unless the model was trained with
     ``fe_per_frame_bn``. Counterpart of JAX's ``make_frame_features``,
     in the port's planar layout.
+
+    ``graph``: replay the extractor as a captured program, one per device
+    (``infer.graph.StepGraph``); ``fe1`` then returns the graph's static
+    outputs, which the next call overwrites: a caller that keeps them
+    clones them.
     """
     @torch.no_grad()
     def fe1(model: KVNet, frame: torch.Tensor) -> tuple:
@@ -102,7 +108,9 @@ def make_frame_features(tf32: bool = False):
                 frame.permute(2, 0, 1)[None].contiguous())
         return layer1[0], feat[0]
 
-    return fe1
+    if not graph:
+        return fe1
+    return StepGraph(lambda model, frame, _: fe1(model, frame))
 
 
 class InferStepOutput(NamedTuple):
@@ -143,7 +151,8 @@ def make_infer_step(cfg: ModelConfig, kernels: bool = True,
                     coarse_knet: Optional[int] = None,
                     with_features: bool = False,
                     paired_knet: Optional[bool] = None,
-                    packed_fe: Optional[bool] = None):
+                    packed_fe: Optional[bool] = None,
+                    graph: bool = False):
     """Returns ``infer_step(model, batch, bv_predict, bv_valid)``.
 
     ``model`` is a ``KVNet`` built from ``cfg`` with ``single_refine=True``.
@@ -169,6 +178,14 @@ def make_infer_step(cfg: ModelConfig, kernels: bool = True,
     ``feats = (layer1 (N, V+1, 32, H/2, W/2), feat (N, V+1, F, h, w))`` in
     [srcs..., ref] order replaces the feature extractor (the cached-feature
     paths; ``make_frame_features``).
+
+    ``graph=True`` is the counterpart of JAX's ``jit=True`` (JAX
+    ``infer/step.py:102``): the step is one captured program per key (the
+    lane count, the lanes' carry validity, ``with_features``, the device),
+    replayed per call (``infer.graph.StepGraph``). A call returns the
+    graph's static outputs, which the next call with the same key
+    overwrites: the caller consumes or copies them first. Off by default:
+    the eager step is what the kernels are held against.
 
     batch dict of tensors (leading N = lanes):
       ref (N, H, W, 3), srcs (N, V, H, W, 3), poses (N, V, 4, 4) ref->src,
@@ -217,12 +234,21 @@ def make_infer_step(cfg: ModelConfig, kernels: bool = True,
                                    d_candi, kernels)
         return InferStepOutput(dpv, dpv_refined, bv_next, depth, conf)
 
+    call = run
+    if graph:
+        program = StepGraph(lambda model, ins, valid: run(
+            model, ins[0], ins[1], valid, ins[2]))
+
+        def call(model, batch, bv_predict, bv_valid, feats):
+            return program(model, (batch, bv_predict, feats),
+                           tuple(bool(v) for v in bv_valid))
+
     if with_features:
         def infer_step_f(model, batch, bv_predict, bv_valid, feats):
-            return run(model, batch, bv_predict, bv_valid, feats)
+            return call(model, batch, bv_predict, bv_valid, feats)
         return infer_step_f
 
     def infer_step(model, batch, bv_predict, bv_valid):
-        return run(model, batch, bv_predict, bv_valid, None)
+        return call(model, batch, bv_predict, bv_valid, None)
 
     return infer_step

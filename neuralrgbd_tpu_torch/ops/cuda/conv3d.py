@@ -23,13 +23,13 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from neuralrgbd_tpu_torch.ops.cuda import build
+from neuralrgbd_tpu_torch.ops.cuda import build, count_launch
 
 NAME = "conv3d"
 SOURCE = "neuralrgbd_tpu_torch/csrc/conv3d.cu"
 REPLACES = "neuralrgbd_tpu/ops/pallas/conv3d_pair.py:335"
 
-launches = 0  # kernel launches; chip_smoke.py resets it around the main path
+launches = 0  # kernel launches (``count_launch``); chip_smoke.py resets it
 
 # The kernel's tile (csrc/conv3d.cu): 96 voxels along x (the wgmma N) x 4
 # rows of one d x 64 output channels (the wgmma M), 2 warpgroups of 2 rows,
@@ -156,7 +156,6 @@ def conv3d_kernel(x: torch.Tensor, w,
     """``conv3d_plain`` on the CUDA kernel: x (D, H, W, C), any float type,
     and w (3, 3, 3, C, N) or ``PackedWeights`` (packed once by the caller,
     as ``knet_fast_apply`` does), on one CUDA device."""
-    global launches
     packed = w if isinstance(w, PackedWeights) else None
     wt = packed.data if packed else w
     if x.dim() != 4 or (packed is None and w.dim() != 5):
@@ -206,7 +205,7 @@ def conv3d_kernel(x: torch.Tensor, w,
              D, H, W, C, N, CP, NP, int(out_dtype == torch.float32),
              dev.index, torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch(NAME, err)
-    launches += 1
+    count_launch(__name__)
     if with_stats:
         return out, stats[0], stats[1]
     return out

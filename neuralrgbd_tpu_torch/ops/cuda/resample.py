@@ -30,7 +30,7 @@ import math
 import torch
 
 from neuralrgbd_tpu_torch.ops.camera import Camera, unit_rays
-from neuralrgbd_tpu_torch.ops.cuda import build
+from neuralrgbd_tpu_torch.ops.cuda import build, count_launch
 from neuralrgbd_tpu_torch.ops.dpv import _set_vol_border
 from neuralrgbd_tpu_torch.ops.sampling import normalized_to_pixel
 
@@ -38,7 +38,7 @@ NAME = "resample"
 SOURCE = "neuralrgbd_tpu_torch/csrc/resample.cu"
 REPLACES = "neuralrgbd_tpu/ops/pallas/resample.py:143"
 
-launches = 0  # kernel launches; chip_smoke.py resets it around the main path
+launches = 0  # kernel launches (``count_launch``); chip_smoke.py resets it
 
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
              + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p])
@@ -155,7 +155,7 @@ def resample_kernel(dpv: torch.Tensor, mats: torch.Tensor, K: torch.Tensor,
     """``resample_plain`` on the CUDA kernel, one launch for all lanes:
     dpv (N, D, H, W), mats (N, 4, 4), K (N, 3, 3), d_candi (D,), all
     contiguous float32 on one CUDA device."""
-    global launches, _launch
+    global _launch
     N, D, H, W = dpv.shape
     dev = dpv.device
     for name, t, shape in (("dpv", dpv, (N, D, H, W)),
@@ -176,7 +176,7 @@ def resample_kernel(dpv: torch.Tensor, mats: torch.Tensor, K: torch.Tensor,
                   torch.cuda.current_stream(dev).cuda_stream)
     if err:
         build.check_launch(NAME, err)
-    launches += 1
+    count_launch(__name__)
     return out
 
 

@@ -20,7 +20,7 @@ import ctypes
 import torch
 
 from neuralrgbd_tpu_torch.ops.camera import Camera
-from neuralrgbd_tpu_torch.ops.cuda import build
+from neuralrgbd_tpu_torch.ops.cuda import build, count_launch
 from neuralrgbd_tpu_torch.ops.sweep import (_sweep_pixel_coords,
                                             sweep_cost_volume_from_coords)
 
@@ -28,7 +28,7 @@ NAME = "sweep_fused"
 SOURCE = "neuralrgbd_tpu_torch/csrc/sweep_fused.cu"
 REPLACES = "neuralrgbd_tpu/ops/pallas/sweep_fused.py:185"
 
-launches = 0  # kernel launches; chip_smoke.py resets it around the main path
+launches = 0  # kernel launches (``count_launch``); chip_smoke.py resets it
 
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_longlong] + [ctypes.c_int] * 6
@@ -44,7 +44,6 @@ def sweep_kernel(ref_feat: torch.Tensor, src_feats: torch.Tensor,
     """``sweep_plain`` on the CUDA kernel: ref_feat (H, W, C), src_feats
     (V, H, W, C), coords (V, D, H*W, 2), all float32 on one CUDA device.
     The features may have any non-negative strides."""
-    global launches
     V, H, W, C = src_feats.shape
     D = coords.shape[1]
     k = keep_last_channels
@@ -76,7 +75,7 @@ def sweep_kernel(ref_feat: torch.Tensor, src_feats: torch.Tensor,
              *ref_feat.stride(), dev.index,
              torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch(NAME, err)
-    launches += 1
+    count_launch(__name__)
     return (cost, kept) if k else cost
 
 

@@ -7,7 +7,8 @@ Four views of one call, which differ most for small kernels:
   to run it, this is the host's time per call, not the kernel's.
 - ``device_ms``: the calls captured once in a CUDA graph and the graph
   replayed between events: the card's own time per call (kernel bodies and
-  the gaps between graph nodes), with no Python in it.
+  the gaps between graph nodes), with no Python in it. The kernels'
+  ``launches`` count the replays (``ops.cuda.recording``).
 - ``host_us``: the host clock around the same calls with no sync inside:
   what issuing one call costs the host.
 - ``host_ms``: the host clock around one call that ends in a sync, as a
@@ -20,6 +21,8 @@ import statistics
 import time
 
 import torch
+
+from neuralrgbd_tpu_torch.ops.cuda import recording, replayed
 
 
 def call_ms(fn, reps: int = 20) -> float:
@@ -44,10 +47,12 @@ def device_ms(fn, calls: int = 100, replays: int = 5) -> float:
         fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+    with recording() as tally, \
+            torch.cuda.graph(graph, capture_error_mode="relaxed"):
         for _ in range(calls):
             fn()
     graph.replay()
+    replayed(tally)
     torch.cuda.synchronize()
     times = []
     for _ in range(replays):
@@ -56,6 +61,7 @@ def device_ms(fn, calls: int = 100, replays: int = 5) -> float:
         start.record()
         graph.replay()
         end.record()
+        replayed(tally)
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / calls)
     del graph

@@ -22,7 +22,10 @@ strides (the plain twin's sums over channels may run in another order on
 another layout: rtol and atol 1e-6).
 
 On the card, also the lockstep loop's launches: one sweep per active lane
-and one prediction per step call, each lane equal to its own run.
+and one prediction per step call, each lane equal to its own run; and the
+step as a captured program (``infer/graph.py``): the graphed rollout
+equal to the eager one bit for bit, its launches counted through the
+replays.
 """
 
 import math
@@ -448,3 +451,40 @@ def test_lockstep_lanes_launch_per_lane_and_equal_their_runs(cuda_device,
                 assert got[0] == "  ".join(want[0])
                 got, want = got[1:], want[1:]
             assert got == want, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast_knet", [False, True])
+def test_graphed_rollout_equals_eager(cuda_device, fast_knet):
+    """``make_rollout(graph=True)`` at 96x64, D=8 (feature_dim 16; 64
+    K-Net channels, the conv kernel's width): each frame's depth and
+    confidence and the final carry equal the eager rollout's bit for bit,
+    and the kernels' launches count one sweep and one prediction a frame
+    (and 10 conv launches a valid frame with ``fast_knet``) through the
+    replays."""
+    from neuralrgbd_tpu_torch.config import ModelConfig
+    from neuralrgbd_tpu_torch.data.synthetic import synthetic_batch
+    from neuralrgbd_tpu_torch.infer.rollout import make_rollout
+    from neuralrgbd_tpu_torch.models.kvnet import KVNet
+
+    cfg = ModelConfig(feature_dim=16, kv_feature_dim=64, ndepth=8,
+                      d_min=0.5, d_max=4.0)
+    T, (H, W) = 4, (64, 96)
+    steps = [synthetic_batch(cfg, n_lanes=1, img_hw=(H, W), seed=t)[0]
+             for t in range(T)]
+    frames = {k: torch.from_numpy(np.stack([s[k] for s in steps])).to(
+        cuda_device) for k in ("ref", "srcs", "poses", "K", "pose_next")}
+    model = KVNet(cfg, device=cuda_device, seed=0, single_refine=True)
+    bv = torch.full((1, 8, H // 4, W // 4), -math.log(8.0),
+                    device=cuda_device)
+    runs, counts = [], []
+    for graph in (False, True):
+        for mod in (ksweep, kresample, kconv):
+            mod.launches = 0
+        runs.append(make_rollout(cfg, fast_knet=fast_knet, graph=graph)(
+            model, frames, bv, [False]))
+        torch.cuda.synchronize()
+        counts.append((ksweep.launches, kresample.launches, kconv.launches))
+    assert counts[0] == counts[1] == (T, T, 10 * (T - 1) if fast_knet else 0)
+    for got, want in zip(*runs):
+        assert torch.equal(got, want)
