@@ -226,12 +226,29 @@ Phases, each printing its own lines:
    eager (``chunk_t`` 32 both), three turns each, with the host ms per
    step call, the run's wall time, the graphs, the capture ms per key and
    the peak memory. Alone it writes phase 14's scene and checkpoint and
-   phase 23's lanes itself.
+   phase 23's lanes itself;
+28. the compiled train and LBA programs (``make_train_step(graph=True)``,
+   ``make_lba_program(graph=True)``, the LBA CLI's graphed frames): 4
+   train steps graphed against 4 eager ones under the ``--wide``
+   campaign's clip and pose noise, bit for bit (losses, carries, depth
+   maps, parameters, gradients, Adam's moments), at 1 and 2 lanes fp32,
+   1 lane bf16 and ``refine_dup``, the gradients kept in their tensors,
+   one prediction launch a step through the replays, the keys and the
+   clip captured; ms per step graphed and eager in turns, the host ms per
+   step call, the capture ms per key, the peak memory; phase 24's 2-rank
+   DP step graphed, its losses equal to phase 24's eager ones; the
+   campaign's 4-step self-check graphed by its default; the LBA program
+   graphed against eager (the capture and a replay) and ms per frame;
+   ``cli.test_kvnet_lba --graph`` on both pose-graph arms against phase
+   21's eager runs: every file equal (``poses.npz`` NaN equal), B1 once
+   and B2 and B3 once each a frame through the replays, the TIMING lines;
+   0 host syncs per steady graphed device-arm frame. Alone it writes its
+   scene and checkpoint and runs phases 21's and 24's eager arms itself.
 
 Then one ``{"kernels": [...]}`` line (the conv kernel's launches: phase
 10's, phase 17's, phase 22's and phase 27's fast path; the sweep's and the
-resample's add phases 19-27, phase 24's and 26's counted in the rank
-processes, phase 27's through the graphs' replays)
+resample's add phases 19-28, phase 24's, 26's and 28's DP counted in the
+rank processes, phases 27's and 28's through the graphs' replays)
 and, last, the ``{"ok": true, ...}`` line. Any failed check exits non-zero before those two lines. A kernel's
 ``ms`` in that line is its ``device_ms``. Every
 kernel's ``bound_ms`` is computed here from the shapes it was timed at:
@@ -418,6 +435,16 @@ TIME_LANES = (1, 2, 4)
 CAMP_SCENES, CAMP_FRAMES, CAMP_STEPS, CAMP_EVAL = 3, 12, 20, 10
 # phase 26: the --mesh campaign's steps and evaluation interval
 MESH_STEPS, MESH_EVAL = 6, 3
+# Phase 28: the compiled train step under the --wide campaign's clip and
+# pose noise (both graphs, and the noise drawn outside them), in these
+# configurations, each 4 steps graphed against 4 eager
+TRAIN_GRAPH = dataclasses.replace(TRAIN, grad_clip_max=2.0,
+                                  pose_noise_level=0.02)
+GRAPH_TRAIN_CASES = (("fp32, 1 lane", CFG, 1), ("fp32, 2 lanes", CFG, 2),
+                     ("bf16, 1 lane", BF16, 1),
+                     ("refine_dup, 1 lane",
+                      dataclasses.replace(CFG, refine_dup=True), 1))
+DP_RUNS: dict = {}        # phase 24's certificate, which phase 28 reads
 
 failures: list[str] = []
 
@@ -2128,12 +2155,13 @@ def time_repair(device, weights) -> None:
               flush=True)
 
 
-def train_step_ms(device, weights, cfg, n: int):
+def train_step_ms(device, weights, cfg, n: int, graph: bool = False):
     """(ms per step over 5 steps after 2 of warm-up, CUDA events; host ms
     to issue one (median); peak GiB; the last output; the step, state,
-    batches and carry for more calls)."""
+    batches and carry for more calls). ``graph``: the graphed step, whose
+    key is captured in the first warm-up step."""
     state = train_state(cfg, device, weights)
-    step = make_train_step(cfg, TRAIN)
+    step = make_train_step(cfg, TRAIN, graph=graph)
     batches = [train_batch(cfg, device, n, SEED + 20 + t) for t in range(7)]
     carry = bv0_on(device).expand(n, -1, -1, -1).contiguous()
     for b in batches[:2]:
@@ -2496,7 +2524,8 @@ def phase_lba(device, loop_info: dict, tmp: str, errs: dict) -> dict:
         kresample.resample_dpv_cuda = counted
         reset_launches()
         try:
-            n, text = quiet(cli_lba.main, lba_args(cap, loop_info, tmp, arm))
+            n, text = quiet(cli_lba.main, lba_args(cap, loop_info, tmp, arm)
+                            + ["--no_graph"])
         finally:
             kresample.resample_dpv_cuda = real
         launches = read_launches()
@@ -2534,6 +2563,7 @@ def phase_lba(device, loop_info: dict, tmp: str, errs: dict) -> dict:
               f"for {n} frames (1 each a frame)")
         print(f"  {CARD[0]}: {arm} arm {timing[0] if timing else 'no TIMING'}",
               flush=True)
+        loop_info.setdefault("lba", {"cap": cap})[arm] = (n, out_dir, timing)
     # the arms frame by frame while both chains are finite: up to the host
     # arm's first gated window, and up to the device arm's first frame
     # with a NaN depth (its pgm reads 0 there; a regressed depth is at
@@ -2571,7 +2601,7 @@ def phase_lba(device, loop_info: dict, tmp: str, errs: dict) -> dict:
     for last in (CFG.t_win_r + 1 + 1, CFG.t_win_r + 1 + 1 + SYNC_FRAMES):
         sites = sync_sites(lambda: quiet(cli_lba.main, lba_args(
             cap, loop_info, tmp, "device", f"sync{last}")
-            + ["--max_frame_idx", str(last)]))
+            + ["--max_frame_idx", str(last), "--no_graph"]))
         counts.append(sum(sites.values()))
     per_frame = (counts[1] - counts[0]) / SYNC_FRAMES
     check(per_frame == 0, f"host syncs per steady device-arm frame: "
@@ -3066,6 +3096,7 @@ def phase_dp(device) -> dict:
     except Exception as exc:
         check(False, f"the 2-rank DP step ran on the card: {exc}")
         return launches
+    DP_RUNS["eager"] = res
     print(f"  {dryrun_dp_torch.describe(res)}", flush=True)
     check(res["dloss"] < 1e-4 and res["dparam"] < 3 * dryrun_dp_torch.LR
           and res["dgrad"] < dryrun_dp_torch.GRAD_RTOL
@@ -3505,6 +3536,298 @@ def phase_graph(model, device, tmp: str, loop_info=None) -> dict:
     return launches
 
 
+def train_schedule(n: int) -> list:
+    """(lane_valid, bv_valid) per step of phase 28's 4 train steps: the
+    carry invalid, then valid; with 2 lanes lane 1 invalid at step 3 and
+    back without its carry at step 4. Keys: 2 for 1 lane, 4 for 2."""
+    if n == 1:
+        return [([1], [0]), ([1], [1]), ([1], [1]), ([1], [0])]
+    return [([1, 1], [0, 0]), ([1, 1], [1, 1]), ([1, 0], [1, 1]),
+            ([1, 1], [1, 0])]
+
+
+def train_run(cfg, n: int, device, graph: bool) -> dict:
+    """Phase 28's 4 steps from the seeded weights: each step's loss, carry
+    and depth map; the parameters, gradients and Adam moments after them;
+    the launches; the keys captured; the peak GiB."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = create_train_state(cfg, TRAIN_GRAPH, model=KVNet(
+        cfg, device=device, seed=SEED))
+    grads = [p.grad for p in state.model.parameters()]
+    step = make_train_step(cfg, TRAIN_GRAPH, graph=graph)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    carry = bv0_on(device).expand(n, -1, -1, -1).contiguous()
+    start, outs = len(graph_mod.captures), []
+    reset_launches()
+    for t, (lane_valid, bv_valid) in enumerate(train_schedule(n)):
+        batch = train_batch(cfg, device, n, SEED + 40 + t)
+        batch["lane_valid"] = np.array(lane_valid, bool)
+        out = step(state, batch, carry, bv_valid, gen)
+        carry = out.bv_predict
+        outs.append([out.loss.clone(), out.bv_predict.clone(),
+                     out.depth_lowres.clone()])
+    launches = read_launches()
+    opt = state.optimizer.state
+    return {"outs": outs, "launches": launches,
+            "state": [(p.detach().clone(), p.grad.clone(),
+                       opt[p]["exp_avg"].clone(), opt[p]["exp_avg_sq"].clone())
+                      for p in state.model.parameters()],
+            "grads_kept": all(p.grad is g for p, g in
+                              zip(state.model.parameters(), grads)),
+            "captures": graph_mod.captures[start:], "peak": peak_gib()}
+
+
+def graph_train(device) -> dict:
+    """Phase 28's train steps: graphed against eager bit for bit per
+    configuration, then ms per step in turns."""
+    launches = {k: 0 for k in KERNELS}
+    for name, cfg, n in GRAPH_TRAIN_CASES:
+        eager = train_run(cfg, n, device, False)
+        graphed = train_run(cfg, n, device, True)
+        for k in KERNELS:
+            launches[k] += graphed["launches"][k]
+        same = all(torch.equal(a, b) for x, y in zip(graphed["outs"],
+                                                      eager["outs"])
+                   for a, b in zip(x, y))
+        same_state = all(torch.equal(a, b) for x, y in zip(
+            graphed["state"], eager["state"]) for a, b in zip(x, y))
+        want = {"sweep_fused": 0, "resample": 4, "conv3d": 0}
+        caps = graphed["captures"]
+        keys = len({(tuple(lv), tuple(bv)) for lv, bv in train_schedule(n)})
+        check(same and same_state and graphed["grads_kept"]
+              and graphed["launches"] == eager["launches"] == want
+              and len(caps) == keys + 1 and not eager["captures"],
+              f"train step {name}: 4 graphed steps equal 4 eager ones bit "
+              f"for bit (losses {[round(float(o[0]), 4) for o in eager['outs']]}"
+              f"; carries, depths, parameters, gradients, Adam's moments: "
+              f"{same and same_state}); the gradients kept in place "
+              f"{graphed['grads_kept']}; launches through the replays "
+              f"{graphed['launches']} (expected {want}); {len(caps)} graphs "
+              f"captured ({keys} keys and the clip) in "
+              f"{' / '.join(f'{c.ms:.1f}' for c in caps)} ms; "
+              f"peak {graphed['peak']:.2f} GiB graphed vs "
+              f"{eager['peak']:.2f} eager")
+        del eager, graphed
+    # ms per step, graphed and eager, in turns
+    for name, n, turns in (("fp32, 1 lane", 1, 3), ("fp32, 2 lanes", 2, 1)):
+        rows = {True: [], False: []}
+        for _ in range(turns):
+            for graph in (True, False):
+                start = len(graph_mod.captures)
+                ms, host, peak, out, rest = train_step_ms(device, None, CFG,
+                                                          n, graph)
+                rows[graph].append((ms, host, peak, [
+                    round(c.ms, 1) for c in graph_mod.captures[start:]]))
+                del out, rest
+                torch.cuda.empty_cache()
+        for graph, rs in rows.items():
+            print(f"  {CARD[0]}: train step {name}, "
+                  f"{'graphed' if graph else 'eager'}: ms per step (CUDA "
+                  f"events over 5 steps) "
+                  f"{' / '.join(f'{r[0]:.2f}' for r in rs)}; host ms per "
+                  f"step call {' / '.join(f'{r[1]:.3f}' for r in rs)}; peak "
+                  f"in the timed steps {' / '.join(f'{r[2]:.2f}' for r in rs)}"
+                  f" GiB (graphed: the pool was taken at the capture); "
+                  f"capture ms per key {[r[3] for r in rs]}", flush=True)
+        med = {g: statistics.median(r[0] for r in rs)
+               for g, rs in rows.items()}
+        print(f"  train step {name}: graphed {med[True]:.2f} vs eager "
+              f"{med[False]:.2f} ms per step "
+              f"({100 * (med[True] / med[False] - 1):+.1f}%)", flush=True)
+    return launches
+
+
+def graph_dp(device) -> dict:
+    """Phase 24's 2-rank DP step, graphed in both rank processes, against
+    phase 24's eager run (run here when phase 28 runs alone)."""
+    import dryrun_dp_torch
+
+    launches = {k: 0 for k in KERNELS}
+    torch.cuda.empty_cache()
+    try:
+        if "eager" not in DP_RUNS:
+            DP_RUNS["eager"] = dryrun_dp_torch.certify(
+                2, device="cuda", config="op", timeout=400)
+        res = dryrun_dp_torch.certify(2, device="cuda", config="op",
+                                      timeout=400, graph=True)
+    except Exception as exc:
+        check(False, f"the graphed 2-rank DP step ran on the card: {exc}")
+        return launches
+    eager = DP_RUNS["eager"]
+    print(f"  {dryrun_dp_torch.describe(res)}", flush=True)
+    check(res["losses"] == eager["losses"] and res["bitwise"] ==
+          eager["bitwise"] and res["replicas_equal"]
+          and res["dloss"] < 1e-4 and res["dgrad"] < dryrun_dp_torch.GRAD_RTOL
+          and res["resample_launches"] == [4, 4],
+          f"the 2-rank DP step graphed (2 gloo ranks on the card): its "
+          f"losses equal the eager DP run's bit for bit "
+          f"({' -> '.join(f'{x:.6f}' for x in res['losses'])}); against the "
+          f"one-process step loss rel {res['dloss']:.2e}, summed gradient "
+          f"rel {res['dgrad']:.2e}, bit for bit "
+          f"{'yes' if res['bitwise'] else 'no'} (eager DP: "
+          f"{'yes' if eager['bitwise'] else 'no'}); replicas equal "
+          f"{res['replicas_equal']}; prediction launches per rank "
+          f"{res['resample_launches']}")
+    for r, (ms, peak) in enumerate(zip(res["ms"], res["peak_gib"])):
+        print(f"  {CARD[0]}: graphed DP rank {r}: ms per carry step "
+              f"{' / '.join(f'{x:.1f}' for x in ms)} (the first captures; "
+              f"eager {' / '.join(f'{x:.1f}' for x in eager['ms'][r])}), "
+              f"peak {peak:.2f} GiB", flush=True)
+    launches["resample"] = sum(res["resample_launches"])
+    return launches
+
+
+def graph_campaign(device, tmp: str) -> dict:
+    """The campaign's 4-step self-check, graphed by its default on the
+    card, on phase 25's scenes (written when phase 28 runs alone)."""
+    from neuralrgbd_tpu_torch.tools.train_campaign import eval_refs
+
+    args = train_campaign.build_parser().parse_args([
+        "--wide", "--scenes", "1", "--max_steps", "4", "--eval_every", "2",
+        "--eval_frames", "2", "--save_dir", os.path.join(tmp, "camp_graph"),
+        "--device", str(device)])
+    reset_launches()
+    start = len(graph_mod.captures)
+    (camp, summary), _ = quiet(train_campaign.run, args, cfg=CFG,
+                               img_wh=IMG_HW[::-1], n_frames=CAMP_FRAMES,
+                               root=os.path.join(tmp, "scenes"))
+    launches = read_launches()
+    frames = len(camp.evals) * sum(len(eval_refs(h, CFG.t_win_r, 2))
+                                   for h in camp.holdouts)
+    want = {"sweep_fused": frames, "resample": 4 + frames, "conv3d": 0}
+    check(summary["graph"] is True and camp.state.step == 4
+          and all(math.isfinite(m["abs_rel"]) for _, m in camp.evals)
+          and launches == want,
+          f"the campaign's 4-step self-check, graphed: summary graph "
+          f"{summary['graph']}, steps {camp.state.step}, abs_rel "
+          f"{[round(m['abs_rel'], 4) for _, m in camp.evals]}, "
+          f"{summary['ms_per_step']} ms per step (host clock, captures "
+          f"included); launches {launches} (expected {want}); "
+          f"{len(graph_mod.captures) - start} graphs captured")
+    return launches
+
+
+def lba_files_equal(a: str, b: str) -> bool:
+    """Every file of two LBA CLI results equal: bytes, and ``poses.npz``'s
+    arrays (NaN equal to NaN)."""
+    names = sorted(os.listdir(a))
+    if names != sorted(os.listdir(b)):
+        return False
+    pa, pb = (np.load(os.path.join(d, "poses.npz")) for d in (a, b))
+    poses = (np.array_equal(pa["valid"], pb["valid"])
+             and np.array_equal(pa["extMs"], pb["extMs"], equal_nan=True))
+    return poses and same_files(a, b, [x for x in names
+                                       if x != "poses.npz"])
+
+
+def graph_lba(device, loop_info: dict, tmp: str) -> dict:
+    """The LBA program and the LBA CLI on both arms, graphed against
+    eager (phase 21's runs; run here when phase 28 runs alone)."""
+    launches = {k: 0 for k in KERNELS}
+    Ks, cpu_args, _ = lba_problem()
+    args = [a.to(device) for a in cpu_args]
+    cams = [camera_from_K(K, device) for K in Ks]
+    eager = make_lba_program(cams, max_iter=LBA_ITERS)
+    graphed = make_lba_program(cams, max_iter=LBA_ITERS, graph=True)
+    want = eager(*args)
+    start = len(graph_mod.captures)
+    got = [graphed(*args).clone() for _ in range(2)]
+    caps = graph_mod.captures[start:]
+    same = all(torch.equal(g.isnan(), want.isnan()) and torch.equal(
+        g.nan_to_num(), want.nan_to_num()) for g in got)
+    ms = {g: host_ms(lambda: (graphed if g else eager)(*args), reps=5)
+          for g in (True, False)}
+    n_launch = kernel_launches(lambda: graphed(*args))
+    check(same and len(caps) == 1,
+          f"the LBA program (V=4, {LBA_ITERS} x 3 iterations) graphed: the "
+          f"capture's call and a replay equal the eager program bit for bit "
+          f"{same}; {len(caps)} graph captured in {caps[0].ms:.1f} ms; "
+          f"{ms[True]:.2f} ms a frame graphed vs {ms[False]:.2f} eager (host "
+          f"clock to a sync); {n_launch} kernel launches from the host a "
+          f"graphed frame")
+
+    if "lba" not in loop_info:       # phase 28 alone: phase 21's eager arms
+        cap = write_capture(os.path.join(tmp, "capture"))
+        loop_info["lba"] = {"cap": cap}
+        for arm in ("host", "device"):
+            n, text = quiet(cli_lba.main, lba_args(cap, loop_info, tmp, arm)
+                            + ["--no_graph"])
+            loop_info["lba"][arm] = (n, os.path.join(
+                tmp, f"lba_{arm}", "lba"), [x for x in text.splitlines()
+                                            if x.startswith("TIMING")])
+    cap = loop_info["lba"]["cap"]
+    for arm in ("host", "device"):
+        n_eager, eager_dir, eager_timing = loop_info["lba"][arm]
+        reset_launches()
+        start = len(graph_mod.captures)
+        n, text = quiet(cli_lba.main, lba_args(cap, loop_info, tmp, arm,
+                                               f"{arm}_graph") + ["--graph"])
+        counted = read_launches()
+        for k in KERNELS:
+            launches[k] += counted[k]
+        out_dir = os.path.join(tmp, f"lba_{arm}_graph", "lba")
+        timing = [x for x in text.splitlines() if x.startswith("TIMING")]
+        want = {"sweep_fused": n, "resample": 2 * n, "conv3d": 0}
+        check(n == n_eager and lba_files_equal(out_dir, eager_dir)
+              and counted == want,
+              f"cli.test_kvnet_lba --pose_graph {arm} --graph: {n} frames; "
+              f"every file equal to the eager run's (poses.npz NaN equal) "
+              f"{lba_files_equal(out_dir, eager_dir)}; launches through the "
+              f"replays {counted} (expected {want}: B1 once, B2 and B3 once "
+              f"each a frame); {len(graph_mod.captures) - start} graphs "
+              f"captured")
+        print(f"  {CARD[0]}: {arm} arm graphed "
+              f"{timing[0] if timing else 'no TIMING'}", flush=True)
+        print(f"  {CARD[0]}: {arm} arm eager    "
+              f"{eager_timing[0] if eager_timing else 'no TIMING'}",
+              flush=True)
+    counts = []
+    for last in (CFG.t_win_r + 1 + 1, CFG.t_win_r + 1 + 1 + SYNC_FRAMES):
+        sites = sync_sites(lambda: quiet(cli_lba.main, lba_args(
+            cap, loop_info, tmp, "device", f"gsync{last}")
+            + ["--max_frame_idx", str(last), "--graph"]))
+        counts.append(sum(sites.values()))
+    per_frame = (counts[1] - counts[0]) / SYNC_FRAMES
+    check(per_frame == 0, f"host syncs per steady graphed device-arm frame: "
+          f"{per_frame} (runs of {counts} syncs in all, {SYNC_FRAMES} "
+          f"steady frames apart)")
+    return launches
+
+
+def phase_compiled(device, tmp: str, loop_info=None) -> dict:
+    """Phase 28. Alone (``loop_info`` None), it writes phase 14's scene and
+    checkpoint and phase 21's eager LBA runs itself."""
+    print(f"phase 28: the compiled train and LBA programs (JAX's jitted "
+          f"train step and LBA programs as CUDA graphs) at "
+          f"{IMG_HW[1]}x{IMG_HW[0]}", flush=True)
+    t_phase = time.perf_counter()
+    if loop_info is None:
+        model = KVNet(CFG, device=device, seed=SEED, single_refine=True)
+        root, ckpt = scene_and_checkpoint(model, tmp)
+        loop_info = {"root": root, "ckpt": ckpt}
+        del model
+    launches = {k: 0 for k in KERNELS}
+    parts = (("train", lambda: graph_train(device)),
+             ("DP", lambda: graph_dp(device)),
+             ("campaign", lambda: graph_campaign(device, tmp)),
+             ("LBA", lambda: graph_lba(device, loop_info, tmp)))
+    for name, part in parts:
+        t_part = time.perf_counter()
+        try:      # a part that raises fails the phase; the next one runs
+            counted = part()
+        except Exception:
+            check(False, f"phase 28's {name} part raised:\n"
+                  f"{traceback.format_exc()}")
+            continue
+        for k, n in counted.items():
+            launches[k] += n
+        print(f"  phase 28, {name}: {time.perf_counter() - t_part:.1f} s",
+              flush=True)
+    print(f"  phase 28: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     device = phase_device()
@@ -3539,7 +3862,8 @@ def main() -> int:
                      phase_dp(device),
                      phase_campaign(device, tmp),
                      phase_mesh(device, errs),
-                     phase_graph(model, device, tmp, loop_info)):
+                     phase_graph(model, device, tmp, loop_info),
+                     phase_compiled(device, tmp, loop_info)):
             for name, n in path.items():
                 launches[name] += n
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of command "

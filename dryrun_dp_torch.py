@@ -165,7 +165,7 @@ def drive(cfg, tcfg, batch_np: dict, step, device) -> dict:
         torch.cuda.reset_peak_memory_stats(device)
     launches = kresample.launches
     out = step(state, batch, carry, np.zeros(n, bool)[block], generator)
-    losses = [out.loss]
+    losses = [out.loss.clone()]   # a graphed step overwrites its loss
     params1 = {k: p.detach().cpu().clone()
                for k, p in state.model.named_parameters()}
     grads1 = {k: p.grad.detach().cpu().clone()
@@ -178,7 +178,7 @@ def drive(cfg, tcfg, batch_np: dict, step, device) -> dict:
         if cuda:
             torch.cuda.synchronize(device)
         ms.append(1e3 * (time.perf_counter() - t0))
-        losses.append(out.loss)
+        losses.append(out.loss.clone())
     return {"losses": [float(x) for x in losses], "params1": params1,
             "grads1": grads1,
             "params": {k: p.detach().cpu().clone()
@@ -203,7 +203,8 @@ def worker(args) -> None:
         cfg, tcfg, batch = problem(args.config, args.world * args.lanes_per_rank,
                                    args.invalid_lane, args.pose_noise,
                                    args.grad_clip)
-        result = drive(cfg, tcfg, batch, make_sharded_train_step(cfg, tcfg),
+        result = drive(cfg, tcfg, batch,
+                       make_sharded_train_step(cfg, tcfg, graph=args.graph),
                        args.device)
         torch.save(result, os.path.join(args.out, f"rank{args.rank}.pt"))
     finally:
@@ -223,7 +224,8 @@ def recorded(step, device):
         if cuda:
             torch.cuda.synchronize(device)
         rec["ms"].append(1e3 * (time.perf_counter() - t0))
-        rec["losses"].append(out.loss.detach())
+        # a clone: a graphed step's next call overwrites its loss
+        rec["losses"].append(out.loss.detach().clone())
         if len(rec["losses"]) == 1:
             for key, attr in (("grads1", "grad"), ("params1", "data")):
                 rec[key] = {k: getattr(p, attr).detach().cpu().clone()
@@ -236,7 +238,7 @@ def recorded(step, device):
 
 
 def drive_campaign(config: str, root: str, save_dir: str, device: str,
-                   steps: int, eval_every: int) -> dict:
+                   steps: int, eval_every: int, graph: bool = False) -> dict:
     """``tools.train_campaign.run`` with ``--mesh --wide`` at ``config``
     on the scenes under ``root`` (written if absent), in the world this
     process is in: its recorded steps (``recorded``), the final
@@ -256,8 +258,9 @@ def drive_campaign(config: str, root: str, save_dir: str, device: str,
         str(eval_every), "--lr", str(LR), "--save_dir", save_dir,
         "--device", device])
     tcfg = train_campaign.settings(args)[1]
-    step = (make_sharded_train_step(cfg, tcfg) if dist.is_initialized()
-            else make_train_step(cfg, tcfg))
+    step = (make_sharded_train_step(cfg, tcfg, graph=graph)
+            if dist.is_initialized() else make_train_step(cfg, tcfg,
+                                                          graph=graph))
     wrapped, rec = recorded(step, device)
     cuda = torch.device(device).type == "cuda"
     if cuda:     # the card this process runs on, its allocator started
@@ -294,7 +297,8 @@ def campaign_worker(args) -> None:
     try:
         result = drive_campaign(args.config, args.root,
                                 os.path.join(args.out, f"save{rank}"),
-                                device, args.steps, args.eval_every)
+                                device, args.steps, args.eval_every,
+                                args.graph)
         torch.save(result, os.path.join(args.out, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -346,11 +350,13 @@ def rel_err(got: dict, want: dict) -> float:
 def certify(ranks: int, device: str = "cpu", config: str = "tiny",
             lanes_per_rank: int = 1, invalid_lane: int = -1,
             pose_noise: float = 0.0, grad_clip: float | None = None,
-            timeout: float = 600.0) -> dict:
+            timeout: float = 600.0, graph: bool = False) -> dict:
     """Run the one-process step here, then ``ranks`` gloo ranks of the DP
     step on the same batch (each a process on ``device``); returns the
     certificate's numbers and ``ok``. Raises if a rank fails or times out
-    (every rank process is stopped first)."""
+    (every rank process is stopped first). ``graph``: the ranks run the
+    graphed DP step (``make_sharded_train_step(graph=True)``) against the
+    eager one-process step."""
     from neuralrgbd_tpu_torch.train.step import make_train_step
 
     n = ranks * lanes_per_rank
@@ -365,6 +371,8 @@ def certify(ranks: int, device: str = "cpu", config: str = "tiny",
                str(invalid_lane), "--pose_noise", str(pose_noise)]
         if grad_clip is not None:
             cmd += ["--grad_clip", str(grad_clip)]
+        if graph:
+            cmd += ["--graph"]
         run_ranks([cmd + ["--rank", str(r)] for r in range(ranks)],
                   [repo_env()] * ranks, timeout)
         dp = [torch.load(os.path.join(out, f"rank{r}.pt")) for r in
@@ -386,6 +394,7 @@ def certify(ranks: int, device: str = "cpu", config: str = "tiny",
     losses = dp[0]["losses"]
     res = {
         "ranks": ranks, "lanes": n, "device": device, "config": config,
+        "graph": graph,
         "invalid_lane": invalid_lane, "dloss": dloss, "dparam": dparam,
         "dgrad": dgrad, "dlosses": dlosses,
         "bitwise": bitwise, "replicas_equal": replicas, "losses": losses,
@@ -405,14 +414,15 @@ def certify_campaign(ranks: int, work: str, device: str = "cpu",
                      config: str = "mesh", steps: int = CAMPAIGN_STEPS,
                      eval_every: int = CAMPAIGN_EVAL,
                      backend: str | None = None,
-                     timeout: float = 900.0) -> dict:
+                     timeout: float = 900.0, graph: bool = False) -> dict:
     """The ``--mesh`` campaign as ``ranks`` processes in torchrun's
     environment (rank r on ``cuda:r`` for ``device`` "cuda"; any other
     device is every rank's), its scenes written by rank 0 under
     ``work/scenes``, then as one process at 8 lanes here on the same
     scenes. Returns the certificate's numbers, the ranks' logs and
     ``ok``. Raises if a rank fails or times out (every rank process is
-    stopped first)."""
+    stopped first). ``graph``: every rank and the one process train on
+    the graphed step."""
     out = os.path.join(work, "ranks")
     os.makedirs(out, exist_ok=True)
     root = os.path.join(work, "scenes")
@@ -423,6 +433,8 @@ def certify_campaign(ranks: int, work: str, device: str = "cpu",
            "--eval_every", str(eval_every), "--root", root, "--out", out]
     if backend:
         cmd += ["--backend", backend]
+    if graph:
+        cmd += ["--graph"]
     logs = run_ranks([cmd] * ranks,
                      [dict(env, RANK=str(r), LOCAL_RANK=str(r))
                       for r in range(ranks)], timeout)
@@ -430,7 +442,7 @@ def certify_campaign(ranks: int, work: str, device: str = "cpu",
           for r in range(ranks)]
     one = device if device != "cuda" else "cuda:0"
     ref = drive_campaign(config, root, os.path.join(work, "save_one"), one,
-                         steps, eval_every)
+                         steps, eval_every, graph)
 
     got, want = dp[0]["losses"], ref["losses"]
     rel = [abs(a - b) / max(abs(b), 1e-9) for a, b in zip(got, want)]
@@ -609,7 +621,8 @@ def campaign_main(args) -> int:
     for ranks in args.ranks:
         with tempfile.TemporaryDirectory() as tmp:
             res = certify_campaign(ranks, tmp, args.device,
-                                   args.config or "mesh", timeout=400)
+                                   args.config or "mesh", timeout=400,
+                                   graph=args.graph)
         print(describe_campaign(res), flush=True)
         print(f"  rank 0's summary: {res['summary']}", flush=True)
         print(f"  one process's summary: {res['ref_summary']}", flush=True)
@@ -654,6 +667,10 @@ def main(argv=None) -> int:
     p.add_argument("--world", type=int, default=1, help=argparse.SUPPRESS)
     p.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
     p.add_argument("--out", default="", help=argparse.SUPPRESS)
+    p.add_argument("--graph", action="store_true",
+                   help="the ranks train on the graphed step (CUDA graphs "
+                        "on the card; the same copies without a graph on "
+                        "the CPU)")
     args = p.parse_args(argv)
     if args.campaign_worker:
         campaign_worker(args)
@@ -675,7 +692,7 @@ def main(argv=None) -> int:
         for invalid in cases:
             lanes = args.lanes_per_rank or (2 if invalid >= 0 else 1)
             res = certify(ranks, args.device, args.config, lanes, invalid,
-                          args.pose_noise, args.grad_clip)
+                          args.pose_noise, args.grad_clip, graph=args.graph)
             print(describe(res), flush=True)
             ok &= res["ok"]
     return 0 if ok else 1

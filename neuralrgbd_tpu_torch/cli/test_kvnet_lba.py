@@ -99,6 +99,15 @@ def build_parser():
     p.add_argument("--device", type=str, default="cuda",
                    help="where the model runs: the CUDA card by default, "
                         "'cpu' on request")
+    p.add_argument("--graph", dest="graph", action="store_true",
+                   default=None,
+                   help="run the frame's programs as captured CUDA graphs "
+                        "(JAX's jitted ones; the default on the card): the "
+                        "whole steady frame on the device pose graph; the "
+                        "step, the LBA maps and the LBA each on the host "
+                        "one")
+    p.add_argument("--no_graph", dest="graph", action="store_false",
+                   help="run them eagerly (the default on the CPU)")
     return p
 
 
@@ -119,7 +128,7 @@ def twin_pose_indices(ref_indx, t_win_r, step):
     return src_pose_idx, src_opt_idx
 
 
-def make_lba_maps(cam_img, d_candi, D):
+def make_lba_maps(cam_img, d_candi, D, graph: bool = False):
     """``lba_maps(dpv_ref (D, H, W), pose_next (4, 4)) -> (dmap_ref,
     conf_ref, dmap_kf, conf_kf)``, each (H, W): depth and confidence for
     the LBA (test_KVNet_LBA.py:414-423). The refined DPV is resampled
@@ -127,7 +136,12 @@ def make_lba_maps(cam_img, d_candi, D):
     (``resample_dpv_cuda``: one launch; its plain twin for CPU tensors)
     through the pose's adjugate inverse (elementwise, no host sync), with
     log(1/D) faces and the default clamp. Depth is E[d]; confidence is
-    exp(max_d DPV) ** 2. ``d_candi`` is a tensor on the DPV's device."""
+    exp(max_d DPV) ** 2. ``d_candi`` is a tensor on the DPV's device.
+
+    ``graph``: as one captured program per key (JAX's jitted
+    ``lba_maps``, ``infer.graph.StepGraph``): B3's launch and the four
+    maps. It returns the graph's static outputs, which the next call
+    overwrites."""
     import torch
 
     from neuralrgbd_tpu_torch.ops.cuda.resample import (adjugate_inverse,
@@ -145,7 +159,12 @@ def make_lba_maps(cam_img, d_candi, D):
                 torch.einsum("dhw,d->hw", p_kf, d_candi),
                 torch.exp(dpv_kf.max(0).values) ** 2)
 
-    return lba_maps
+    if not graph:
+        return lba_maps
+    from neuralrgbd_tpu_torch.infer.graph import StepGraph
+
+    program = StepGraph(lambda _, ins, __: lba_maps(*ins))
+    return lambda dpv_ref, pose_next: program(None, (dpv_ref, pose_next))
 
 
 def quantize_maps(depth, conf):
@@ -159,7 +178,7 @@ def quantize_maps(depth, conf):
 
 
 def make_steady_frame(infer_step, lba_run, lba_maps, K_dev,
-                      use_dso_R, use_dso_t):
+                      use_dso_R, use_dso_t, graph: bool = False):
     """One steady-state frame on the device pose graph.
 
     With ``pose_graph='device'`` the trajectory lives on the device as an
@@ -179,6 +198,14 @@ def make_steady_frame(infer_step, lba_run, lba_maps, K_dev,
     (V,); ``dso_rel`` (4, 4) on the device, or None without
     ``use_dso_R``/``use_dso_t``. Returns (bv_predict, updated extMs,
     quantized (2, H, W) maps).
+
+    ``graph``: the whole frame as one captured program (JAX's jitted
+    ``steady_frame``; ``infer.graph.StepGraph``, one graph per
+    ``bv_valid`` and whether ``dso_rel`` is given). ``infer_step``,
+    ``lba_run`` and ``lba_maps`` must then be the eager ones: graphs do not
+    nest. ``extMs`` goes in as a static input and out as a static output
+    (the caller passes the output back in); the outputs are overwritten by
+    the next call, so copy the maps before it.
     """
     import torch
 
@@ -214,7 +241,25 @@ def make_steady_frame(infer_step, lba_run, lba_maps, K_dev,
         extMs = extMs.index_copy(0, idx["opt"], rel_opt @ nxt)
         return out.bv_predict, extMs, dc
 
-    return steady_frame
+    if not graph:
+        return steady_frame
+    from neuralrgbd_tpu_torch.infer.graph import StepGraph
+
+    program = StepGraph(lambda model, ins, bv_valid: steady_frame(
+        model, ins["extMs"], ins["ref_img"], ins["src_imgs"],
+        ins["next_img"], ins["opt_imgs"], ins["bv_predict"], list(bv_valid),
+        ins["idx"], ins.get("dso_rel")))
+
+    def steady_frame_graphed(model, extMs, ref_img, src_imgs, next_img,
+                             opt_imgs, bv_predict, bv_valid, idx, dso_rel):
+        ins = dict(extMs=extMs, ref_img=ref_img, src_imgs=list(src_imgs),
+                   next_img=next_img, opt_imgs=list(opt_imgs),
+                   bv_predict=bv_predict, idx=idx)
+        if dso_rel is not None:
+            ins["dso_rel"] = dso_rel
+        return program(model, ins, tuple(bool(v) for v in bv_valid))
+
+    return steady_frame_graphed
 
 
 def main(argv=None):
@@ -265,21 +310,29 @@ def main(argv=None):
     ]
     focal_length = float(np.mean([traj.K_img[0, 0], traj.K_img[1, 1]]))
 
-    infer_step = make_infer_step(cfg)
-    lba_run = make_lba_program(cams_pyr, max_iter=args.LBA_max_iter,
-                               step=args.LBA_step,
-                               opt_vars=(args.opt_r, args.opt_t))
-    lba_maps = make_lba_maps(cams_pyr[-1],
-                             _upload(cfg.d_candi.astype(np.float32), device),
-                             D)
+    graph = args.graph if args.graph is not None else device.type == "cuda"
+    d_candi_dev = _upload(cfg.d_candi.astype(np.float32), device)
+
+    def programs(graphed):
+        return (make_infer_step(cfg, graph=graphed),
+                make_lba_program(cams_pyr, max_iter=args.LBA_max_iter,
+                                 step=args.LBA_step,
+                                 opt_vars=(args.opt_r, args.opt_t),
+                                 graph=graphed),
+                make_lba_maps(cams_pyr[-1], d_candi_dev, D, graph=graphed))
+
+    # the host arm's programs, each graphed alone (JAX jits them apart)
+    infer_step, lba_run, lba_maps = programs(graph)
 
     pose_graph_dev = (args.pose_graph == "device"
                       or (args.pose_graph == "auto"
                           and device.type == "cuda"))
     use_dso_R, use_dso_t = bool(args.use_dso_R), bool(args.use_dso_t)
     K_dev = _upload(traj.K_dpv[None].astype(np.float32), device)
-    steady_frame = make_steady_frame(infer_step, lba_run, lba_maps, K_dev,
-                                     use_dso_R, use_dso_t)
+    # graphed, the steady frame is one graph around the eager programs
+    steady_frame = make_steady_frame(
+        *(programs(False) if graph else (infer_step, lba_run, lba_maps)),
+        K_dev, use_dso_R, use_dso_t, graph=graph)
 
     dev_extMs = None          # (L, 4, 4) on the device; None: stale/unbuilt
 
@@ -408,7 +461,9 @@ def main(argv=None):
                     idx, dso_rel)
                 bv_valid = [True]
                 t2 = time.perf_counter()
-                queue_export(ref_indx, dc)
+                # a clone: the exporter copies chunks later, and a graphed
+                # frame's next replay overwrites its maps
+                queue_export(ref_indx, dc.clone() if graph else dc)
                 for i in opt_idx:
                     valid_mask[i] = True
                 t3 = time.perf_counter()

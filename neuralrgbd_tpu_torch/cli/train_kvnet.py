@@ -173,7 +173,9 @@ def _train(args, rank: int, world: int):
 
             from neuralrgbd_tpu_torch.parallel import make_sharded_train_step
 
-            train_step = make_sharded_train_step(cfg, tcfg)
+            # graphed on the card, as train_epochs' own step
+            train_step = make_sharded_train_step(
+                cfg, tcfg, graph=next(state.model.parameters()).is_cuda)
             if rank == 0:
                 print(f"data-parallel over {world} ranks "
                       f"({dist_backend()})")

@@ -36,17 +36,34 @@ the key is captured (the work is not run again), under whatever numerics
 cuDNN hold in the captured algorithms). So each call runs the step's work
 once, and the kernels' counts stay one a frame. The capture is
 ``thread_local``: the loop's export threads may wait on the card while
-the main thread captures. On a CUDA tensor a failed capture or replay
+the main thread captures (the training graphs capture autograd's
+backward so too). On a CUDA tensor a failed capture or replay
 raises; there is no eager fallback.
 
 A graph reads the parameters, and the caches built from them (the packed
-conv weights of ``fast_knet``, the bf16 casts), by address. A call checks
-the parameters' versions against those at capture: after a write in place
-(``load_state_dict``, an optimizer step) the model's graphs are dropped
-and captured anew. A parameter rebound to a new tensor is not seen (the
-graph goes on reading the old one): build a new step after that. Only
-the loop is graphed by default; the training campaign and the deviation
-gate do not call it.
+conv weights of ``fast_knet``, the bf16 casts), by address. How a call
+checks them is the ``check`` of the ``StepGraph``:
+
+- ``"versions"`` (the inference graphs): the parameters' versions against
+  those at capture. After a write in place (``load_state_dict``, an
+  optimizer step) the model's graphs are dropped and captured anew. A
+  parameter rebound to a new tensor is not seen (the graph goes on reading
+  the old one): build a new step after that.
+- ``"addresses"`` (the training graphs, ``train.step.make_train_step(
+  graph=True)``): the optimizer writes the weights in place on every step,
+  and the graphs read them, and write the gradients into each ``p.grad``,
+  by address. A call checks that every parameter and its ``.grad`` is
+  still the tensor of the capture (``data_ptr`` and shape); a write in
+  place, an optimizer step or a ``load_state_dict``, keeps the graphs
+  valid. A rebound parameter or gradient raises: build a new step.
+
+The inference loop graphs by default at ``chunk_t > 1``; the trainer, the
+training campaign and the LBA CLI graph by default on the card. The
+deviation gate's evaluation steps eagerly.
+
+A function may take no tensors (``inputs`` an empty tuple): its graph
+reads and writes the model's tensors by address, as the training step's
+gradient clip does, and runs on the model's device.
 
 On CPU tensors there is no graph: a call copies its inputs into the same
 static buffers, runs ``fn`` on them and copies the result into the same
@@ -94,6 +111,14 @@ def _versions(params: list) -> tuple:
     return tuple(p._version for p in params)
 
 
+def _addresses(model: torch.nn.Module) -> tuple:
+    """Where each parameter and its ``.grad`` live (``data_ptr``, shape)."""
+    return tuple((p.data_ptr(), p.shape,
+                  None if p.grad is None else (p.grad.data_ptr(),
+                                               p.grad.shape))
+                 for p in model.parameters())
+
+
 class _Entry(NamedTuple):
     model: torch.nn.Module    # held, so that its id is not reused
     params: list              # its parameters, and their versions at
@@ -124,12 +149,17 @@ _warmup_streams: dict = {}
 
 class StepGraph:
     """``graph(model, inputs, static)`` -> the static outputs of
-    ``fn(model, inputs, static)`` (module docstring)."""
+    ``fn(model, inputs, static)`` (module docstring). ``model`` may be
+    None for a function of its inputs alone (the LBA's programs)."""
 
-    def __init__(self, fn: Callable):
+    def __init__(self, fn: Callable, check: str = "versions"):
+        if check not in ("versions", "addresses"):
+            raise ValueError(f"unknown check: {check!r}")
         self._fn = fn
+        self._check = check
         self._entries: dict = {}
         self._pools: dict = {}            # device -> graph pool handle
+        self._addresses: dict = {}        # id(model) -> _addresses at capture
 
     def __len__(self) -> int:
         """The keys captured and live."""
@@ -137,11 +167,18 @@ class StepGraph:
 
     def __call__(self, model: torch.nn.Module, inputs, static=()):
         leaves = _leaves(inputs)
-        device = leaves[0].device
+        device = (leaves[0] if leaves else next(model.parameters())).device
         shapes = tuple((tuple(t.shape), t.dtype) for t in leaves)
         key = (id(model), device, static, shapes)
         entry = self._entries.get(key)
-        if entry is not None and _versions(entry.params) != entry.versions:
+        if self._check == "addresses" and model is not None:
+            now = _addresses(model)
+            if now != self._addresses.setdefault(id(model), now):
+                raise RuntimeError(
+                    "a parameter or its .grad was rebound since this step's "
+                    "graphs were captured (they read and write the tensors "
+                    "of the capture by address): build a new step")
+        elif entry is not None and _versions(entry.params) != entry.versions:
             # the weights were written since the capture
             self._entries = {k: e for k, e in self._entries.items()
                              if k[0] != id(model)}
@@ -161,8 +198,9 @@ class StepGraph:
         return entry.outputs
 
     def _capture(self, model, inputs, static) -> _Entry:
-        device = _leaves(inputs)[0].device
-        params = list(model.parameters())
+        leaves = _leaves(inputs)
+        device = (leaves[0] if leaves else next(model.parameters())).device
+        params = [] if model is None else list(model.parameters())
         versions = _versions(params)
         ins = _clone(inputs)
         if device.type != "cuda":

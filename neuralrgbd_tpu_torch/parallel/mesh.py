@@ -147,7 +147,7 @@ def _all_reduce(group):
 
 
 def make_sharded_train_step(cfg: ModelConfig, tcfg: TrainConfig,
-                            group=None):
+                            group=None, graph: bool = False):
     """The data-parallel train step over ``group`` (the default process
     group if None; ``torch.distributed.init_process_group`` must have run).
 
@@ -159,11 +159,17 @@ def make_sharded_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     ``batch["lane_valid"]`` all N. Every rank starts from the same state
     and ends with the same one. The returned loss is the whole batch's;
     ``bv_predict`` and ``depth_lowres`` are the block's. ``generator``
-    must be seeded alike on every rank."""
+    must be seeded alike on every rank.
+
+    ``graph=True`` (JAX's jitted sharded step, ``parallel/mesh.py:66``):
+    each rank replays its forward and backward as a captured program
+    (``train.step.make_train_step(graph=True)``), then the all-reduce runs
+    eagerly, in place, then the clip's graph and Adam; the returned loss is
+    the all-reduce's, the carry the graph's static output."""
     if not dist.is_initialized():
         raise RuntimeError("make_sharded_train_step: call torch.distributed."
                            "init_process_group first")
     rank, world = dist.get_rank(group), dist.get_world_size(group)
     return _make_train_step(cfg, tcfg, True,
                             lambda n: lane_block(n, rank, world),
-                            _all_reduce(group))
+                            _all_reduce(group), graph=graph)

@@ -23,6 +23,15 @@ What the port keeps of JAX's numerics:
 - ``opt_R`` / ``opt_t`` multiply the gradient by 0 or 1.
 
 Everything stays on the tensors' device: no host sync in a run.
+
+``make_lba_program(graph=True)`` is the counterpart of JAX's ``jax.jit``
+of the whole LBA (JAX ``pose/lba.py:166``): the pyramid, the chart, the
+60 Adam iterations with their ``autograd.grad`` and the assembly
+captured as one CUDA graph per key (``infer.graph.StepGraph``: V, the
+shapes, ``bi_direct``, the device), replayed per call. The count restarts at 0 on every call, so the bias
+corrections are the same host constants in every replay. A call returns
+the graph's static output, which the next call overwrites: copy what you
+keep. On CPU tensors the same copy-in and copy-out runs without a graph.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from neuralrgbd_tpu_torch.infer.graph import StepGraph
 from neuralrgbd_tpu_torch.models.layers import avg_pool2d
 from neuralrgbd_tpu_torch.ops.camera import Camera
 from neuralrgbd_tpu_torch.ops.rotations import (rotation_to_unitq,
@@ -132,12 +142,15 @@ def _assemble(uq: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 
 def make_lba_program(cams: Sequence[Camera], dw_scales=(4, 2, 1),
                      max_iter: int = 20, step: float = 0.01,
-                     opt_vars=(1, 1), bi_direct: bool = False):
+                     opt_vars=(1, 1), bi_direct: bool = False,
+                     graph: bool = False):
     """The whole per-frame LBA as one call: pyramid, unitQ chart, the
     multi-scale Adam schedule and the SE(3) assembly:
     ``run(img_ref, imgs_src, dmap_ref, conf_ref, rel_inits[, dmaps_src])
     -> (V, 4, 4)``. The same semantics as ``local_ba_direct`` (reference
-    opt_pose_numerical.py:172-304, the parallel variant)."""
+    opt_pose_numerical.py:172-304, the parallel variant). ``graph``: the
+    whole call as one captured program (module docstring; ``cams`` are
+    its constants, as JAX's jit closes over them)."""
     optimizer = make_lba_optimizer(
         n_scales=len(dw_scales), max_iter=max_iter, lr=step,
         opt_R=bool(opt_vars[0]), opt_t=bool(opt_vars[1]),
@@ -153,7 +166,21 @@ def make_lba_program(cams: Sequence[Camera], dw_scales=(4, 2, 1),
                      if bi_direct else None)
         return _assemble(*optimizer(pyr, uq0, t0, src_dmaps))
 
-    return run
+    if not graph:
+        return run
+    program = StepGraph(lambda _, ins, __: (run(**ins),))
+
+    def run_graphed(img_ref, imgs_src, dmap_ref, conf_ref, rel_inits,
+                    dmaps_src=None):
+        ins = dict(img_ref=img_ref, imgs_src=imgs_src, dmap_ref=dmap_ref,
+                   conf_ref=conf_ref, rel_inits=rel_inits)
+        if bi_direct:
+            if dmaps_src is None:
+                raise ValueError("bi_direct=True requires dmaps_src")
+            ins["dmaps_src"] = dmaps_src
+        return program(None, ins)[0]
+
+    return run_graphed
 
 
 def build_pyramid(img_ref, dmap_ref, conf_ref, imgs_src,

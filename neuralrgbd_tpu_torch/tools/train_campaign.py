@@ -24,8 +24,10 @@ photometric augmentation, pose noise 0.02, Adam 1e-4 with a cosine
 schedule over ``--lr_decay_steps`` (or ``--max_steps``), clip 2.0, one
 lane. Runs on the CUDA card unless ``--device cpu``. Training runs
 ``train/loop.train_epochs`` (the forward on the plain ops, the carry on
-the resample kernel); a holdout frame runs ``infer/step.make_infer_step``
-on the kernels: the sweep once and the resample once. The scenes are
+the resample kernel), on the card as captured CUDA graphs
+(``make_train_step(graph=True)``), eagerly on the CPU; a holdout
+frame runs ``infer/step.make_infer_step`` on the kernels: the sweep once
+and the resample once. The scenes are
 written once, under the temporary directory, as JAX's tool writes them
 (the absent ones over a pool of processes, each renamed into place whole).
 
@@ -66,6 +68,7 @@ from neuralrgbd_tpu_torch.config import ModelConfig, TrainConfig
 from neuralrgbd_tpu_torch.data.synthetic import (synthetic_dataset,
                                                  write_scenes)
 from neuralrgbd_tpu_torch.data.trajectory import window_batch, window_indices
+from neuralrgbd_tpu_torch.infer import graph as graph_mod
 from neuralrgbd_tpu_torch.infer.metrics import MetricAccumulator, depth_metrics
 from neuralrgbd_tpu_torch.infer.step import (make_frame_features,
                                              make_infer_step)
@@ -356,9 +359,13 @@ def run(args, train_step=None, on_save: Optional[Callable] = None,
     camp = build(args, **build_kw)
     args, state = camp.args, camp.state
     lead = camp.rank == 0
+    graph = torch.device(args.device).type == "cuda"   # as train_epochs
+    # the summary's "graph": the campaign's own step graphed, or None for
+    # a caller's step
+    graphed = graph if train_step is None else None
     if camp.world > 1:
-        train_step = train_step or make_sharded_train_step(camp.cfg,
-                                                           camp.tcfg)
+        train_step = train_step or make_sharded_train_step(
+            camp.cfg, camp.tcfg, graph=graph)
         if lead:
             print(f"DP over {camp.world} ranks ({dist.get_backend()}), "
                   f"{camp.batch // camp.world} lanes each", flush=True)
@@ -393,6 +400,10 @@ def run(args, train_step=None, on_save: Optional[Callable] = None,
               flush=True)
 
     step0, t0 = state.step, time.time()
+    captured = len(graph_mod.captures)
+    cuda = torch.device(args.device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(args.device)
     state = train_epochs(state, camp.cfg, camp.tcfg, camp.make_traj,
                          camp.n_train, camp.batch, train_step=train_step,
                          save_dir=args.save_dir if lead else None,
@@ -418,12 +429,18 @@ def run(args, train_step=None, on_save: Optional[Callable] = None,
         "delta1": [round(float(m0["delta1"]), 4),
                    round(float(m1["delta1"]), 4)],
         "best": best if best["abs_rel"] < float("inf") else None,
-        "ranks": camp.world,
+        "ranks": camp.world, "graph": graphed,
         # host clock: the loop's wall time, and per step without the
         # periodic evaluations and their checkpoints
         "train_s": round(dt, 1), "eval_s": round(eval_s[0], 1),
         "ms_per_step": (round(1e3 * (dt - eval_s[0]) / steps, 1)
                         if steps else None),
+        # the graphs this process captured while training (the step's keys
+        # and the clip's), and its peak device memory meanwhile (the
+        # periodic evaluations included)
+        "graphs": len(graph_mod.captures) - captured,
+        "peak_gib": (round(torch.cuda.max_memory_allocated(args.device)
+                           / 2 ** 30, 2) if cuda else None),
     }
     print(json.dumps(summary), flush=True)
     return camp, summary

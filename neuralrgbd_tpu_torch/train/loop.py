@@ -10,7 +10,11 @@ reference's ``n_valid_batch == 0`` branch (train_KVNet.py:320-323).
 
 On the card the main thread does not wait for the steps: each batch goes
 up once, from pinned memory, with non-blocking copies, and the losses
-stay on the device until one copy every 20 steps brings them down.
+stay on the device until one copy every 20 steps brings them down. The
+step is the graphed one there by default (``make_train_step(graph=
+True)``): its loss is the graph's static output, which the next replay
+overwrites, so the loop keeps a clone of each step's loss (4 bytes on the
+device, no sync).
 """
 
 from __future__ import annotations
@@ -32,6 +36,13 @@ from neuralrgbd_tpu_torch.utils.checkpoint import save_checkpoint
 from neuralrgbd_tpu_torch.utils.logging import MetricsWriter
 
 FLUSH_EVERY = 20   # steps per copy of the losses to the host
+
+
+def _keep(loss: torch.Tensor) -> torch.Tensor:
+    """A step's loss as the loop keeps it until the next flush: a copy (4
+    bytes on the device, no sync), since a graphed step's next replay
+    overwrites the graph's static loss."""
+    return loss.clone()
 
 
 def upload_batch(batch_np: dict, device, lanes: slice = slice(None)) -> dict:
@@ -81,6 +92,7 @@ def train_epochs(
     verbose: bool = True,
     eval_every: Optional[int] = None,
     eval_fn: Optional[Callable] = None,
+    graph: Optional[bool] = None,
 ) -> TrainState:
     """Train ``state`` in place and return it. The loop runs where the
     model is (the card for a model built there). ``eval_fn(state,
@@ -93,11 +105,17 @@ def train_epochs(
     seeded schedule and steps its block of each batch's lanes
     (``train_step.lane_block``), decoding only those
     (``block_frame_batch``); give ``log_dir`` and ``save_dir`` to one
-    rank only."""
-    train_step = train_step or make_train_step(cfg, tcfg)
+    rank only.
+
+    Without a ``train_step`` the loop makes ``make_train_step(cfg, tcfg,
+    graph=graph)``; ``graph`` None graphs it on the card and steps eagerly
+    on the CPU."""
+    device = next(state.model.parameters()).device
+    if train_step is None:
+        graph = device.type == "cuda" if graph is None else graph
+        train_step = make_train_step(cfg, tcfg, graph=graph)
     lane_block = getattr(train_step, "lane_block", lambda n: slice(0, n))
     writer = MetricsWriter(log_dir) if log_dir else None
-    device = next(state.model.parameters()).device
     generator = torch.Generator(device=device).manual_seed(tcfg.seed)
 
     n_epoch = n_epoch or tcfg.n_epoch
@@ -155,7 +173,7 @@ def train_epochs(
                                  bv_predict, carry_valid[block].copy(),
                                  generator)
                 bv_predict = out.bv_predict
-                loss_buf.append((total_iter + 1, out.loss))
+                loss_buf.append((total_iter + 1, _keep(out.loss)))
                 # a lane's carry is only valid if THIS window was valid
                 carry_valid = lane_valid.copy()
                 total_iter += 1

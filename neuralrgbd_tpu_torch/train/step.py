@@ -39,6 +39,21 @@ How the port meets JAX's semantics:
   (``parallel.make_sharded_train_step``) runs this step on each rank's
   block of lanes and sums the gradients and the loss over the ranks
   before the update; a ``gloo`` all-reduce of CUDA tensors waits for them.
+- ``graph=True`` is the counterpart of JAX's ``jit=True`` (JAX
+  ``train/step.py:185``): the step as captured programs
+  (``infer.graph.StepGraph``, checked by address), with the numerics of
+  the eager step bit for bit. Graph 1, one per key (the lane count, the
+  whole batch's ``lane_valid``, the block's ``bv_valid``, the device),
+  zeroes the gradients, runs each valid lane's forward and ``backward``
+  (the gradients land in the ``p.grad`` tensors of ``create_train_state``,
+  by address), sums the loss and computes the carry; the carry reads only
+  the detached DPVs, so it runs before the update with its values
+  unchanged, as in JAX. Then, eagerly, the data-parallel ``reduce``
+  (in place, on gloo or NCCL); graph 2, the clip alone; and, eagerly,
+  ``torch.optim.Adam.step()`` with the learning rate set from the host
+  (``capturable=False``: its rounding, and the ``state.pt`` format, stay
+  as they are). The pose noise is drawn outside the graphs from the
+  caller's generator, so the draws are eager's.
 
 The heads train as in JAX: ``refine_dup`` takes its two image-size NLL
 terms against ``batch["dmap_up4_imgsize_digit"]`` (the 4D-bin labels,
@@ -57,6 +72,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from neuralrgbd_tpu_torch.config import ModelConfig, TrainConfig
+from neuralrgbd_tpu_torch.infer.graph import StepGraph
 from neuralrgbd_tpu_torch.infer.step import predict_next, step_numerics
 from neuralrgbd_tpu_torch.models.kvnet import KVNet, check_supported
 from neuralrgbd_tpu_torch.ops.camera import Camera
@@ -127,6 +143,10 @@ def clip_by_global_norm_(grads: list, max_norm: float) -> None:
         g.div_(div).mul_(mul)
 
 
+def _clip_grads(model: KVNet, max_norm: float) -> None:
+    clip_by_global_norm_([p.grad for p in model.parameters()], max_norm)
+
+
 @dataclasses.dataclass
 class TrainState:
     """The model, its Adam state and the update count (JAX's ``TrainState``
@@ -138,12 +158,13 @@ class TrainState:
     grad_clip_max: Optional[float] = None
     step: int = 0
 
-    def apply_gradients(self) -> None:
+    def apply_gradients(self, clip: Optional[Callable] = None) -> None:
         """One optax-ordered update from the gradients in ``.grad``: the
-        clip, the learning rate at count ``step``, Adam; then the count."""
+        clip, the learning rate at count ``step``, Adam; then the count.
+        ``clip(model, max_norm)`` replaces the eager clip (the graphed
+        step's)."""
         if self.grad_clip_max is not None:
-            clip_by_global_norm_([p.grad for p in self.model.parameters()],
-                                 self.grad_clip_max)
+            (clip or _clip_grads)(self.model, self.grad_clip_max)
         for group in self.optimizer.param_groups:
             group["lr"] = self.lr(self.step)
         self.optimizer.step()
@@ -198,7 +219,8 @@ def check_trainable(cfg: ModelConfig, tcfg: TrainConfig) -> None:
             "ndepth (JAX's train step fails on it too)")
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, kernels: bool = True):
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, kernels: bool = True,
+                    graph: bool = False):
     """Returns ``train_step(state, batch, bv_predict, bv_valid,
     generator=None) -> TrainStepOutput``; ``state`` is updated in place and
     returned.
@@ -217,13 +239,22 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, kernels: bool = True):
     runs on the plain ops either way. With ``cfg.refine_dup`` the batch
     also carries ``dmap_up4_imgsize_digit`` (N, H, W), the 4D-bin labels
     of the image-size terms.
+
+    ``graph=True`` runs the step as captured programs (module docstring);
+    the train CLI, ``train.loop.train_epochs`` and the campaign take it on
+    the card. Its ``loss``, ``bv_predict`` and ``depth_lowres`` are the
+    graph's static outputs, which the next call overwrites: copy what you
+    keep (a 4-byte clone of the loss). The step reads the parameters and
+    their ``.grad`` by address: after rebinding one, build a new step (a
+    call raises). On CPU tensors it runs the same copy-in and copy-out
+    without a graph.
     """
-    return _make_train_step(cfg, tcfg, kernels)
+    return _make_train_step(cfg, tcfg, kernels, graph=graph)
 
 
 def _make_train_step(cfg: ModelConfig, tcfg: TrainConfig, kernels: bool,
                      lane_block: Optional[Callable[[int], slice]] = None,
-                     reduce: Optional[Callable] = None):
+                     reduce: Optional[Callable] = None, graph: bool = False):
     """``make_train_step``'s step, for one process's block of lanes
     (``parallel.make_sharded_train_step``). ``lane_block(n)``: the lanes
     of the whole batch of n that this process runs (all of them if None);
@@ -267,34 +298,29 @@ def _make_train_step(cfg: ModelConfig, tcfg: TrainConfig, kernels: bool,
                     d_candi, tcfg.weight_var)
         return loss, out.dpv
 
-    def train_step(state: TrainState, batch, bv_predict, bv_valid,
-                   generator: Optional[torch.Generator] = None
-                   ) -> TrainStepOutput:
-        model = state.model
+    def forward_backward(model, ins, static):
+        """The gradients of every valid lane, summed into ``.grad`` (zeroed
+        first), the loss and the detached carry: ``(loss, bv_next,
+        depth_low)``. ``ins``: the block's tensors of the batch,
+        ``bv_predict`` and, with pose noise, the block's draws ``eps``;
+        ``static``: the whole batch's ``lane_valid`` and the block's
+        ``bv_valid``, as tuples of bools."""
+        valid_all, bv_valid = static
+        bv_predict = ins["bv_predict"]
         dev = bv_predict.device
         d_candi = d_candis.get(dev)
         if d_candi is None:
             d_candi = d_candis[dev] = torch.as_tensor(cfg.d_candi, device=dev)
-        valid_all = [bool(v) for v in batch["lane_valid"]]
-        block = lane_block(len(valid_all))
-        lane_valid = valid_all[block]
+        lane_valid = valid_all[lane_block(len(valid_all))]
         scale = 1.0 / max(sum(valid_all), 1)
         N, D = bv_predict.shape[:2]
-        if N != len(lane_valid):
-            raise ValueError(f"the carry holds {N} lanes and this step's "
-                             f"block of the batch {len(lane_valid)}")
-        poses = batch["poses"]
-        if tcfg.pose_noise_level > 0:
-            # drawn for the whole batch, then this block's lanes: each
-            # lane's draw is the one-process step's
-            eps_r, eps_t = draw_pose_noise(
-                poses.new_empty((len(valid_all), *poses.shape[1:])),
-                generator)
-            poses = apply_pose_noise(poses, eps_r[block], eps_t[block],
-                                     tcfg.pose_noise_level)
-        lanes = dict(batch, poses=poses)
+        batch = ins["batch"]
+        if "eps" in ins:
+            batch = dict(batch, poses=apply_pose_noise(
+                batch["poses"], *ins["eps"], tcfg.pose_noise_level))
         with step_numerics(False), deterministic_backward():
-            state.optimizer.zero_grad(set_to_none=False)
+            for p in model.parameters():     # zero_grad(set_to_none=False)
+                p.grad.zero_()
             loss = torch.zeros((), device=dev)
             dpvs = []
             for n in range(N):
@@ -302,22 +328,59 @@ def _make_train_step(cfg: ModelConfig, tcfg: TrainConfig, kernels: bool,
                     dpvs.append(torch.full(bv_predict.shape[1:], -math.log(D),
                                            device=dev))
                     continue
-                lane, dpv = lane_loss(model, lanes, n, d_candi, bv_predict,
-                                      bool(bv_valid[n]))
+                lane, dpv = lane_loss(model, batch, n, d_candi, bv_predict,
+                                      bv_valid[n])
                 (lane * scale).backward()
                 loss = loss + lane.detach() * scale
                 dpvs.append(dpv.detach())
-            if reduce is not None:
-                loss = reduce(model, loss)
-            state.apply_gradients()
-            # the prediction for the next frame, outside the graph, as the
-            # reference's .detach(): TBPTT of length one
-            # (train_utils/train_KVNet.py:155-171)
+            # the prediction for the next frame, outside the autograd
+            # graph, as the reference's .detach(): TBPTT of length one
+            # (train_utils/train_KVNet.py:155-171). It reads only the
+            # detached DPVs, so it runs before the update (JAX's :174-180)
             dpvs = torch.stack(dpvs)
             with torch.no_grad():
                 bv_next = predict_next(dpvs, batch["pose_next"], batch["K"],
                                        d_candi, kernels)
                 depth_low = depth_regression(dpvs, d_candi)
+        return loss, bv_next, depth_low
+
+    def clip(model, _, max_norm):   # a graph of no inputs and no outputs
+        _clip_grads(model, max_norm)
+        return ()
+
+    run, clip_run = forward_backward, None
+    if graph:
+        run = StepGraph(forward_backward, check="addresses")
+        clip_graph = StepGraph(clip, check="addresses")
+        clip_run = lambda model, max_norm: clip_graph(model, (), max_norm)
+
+    def train_step(state: TrainState, batch, bv_predict, bv_valid,
+                   generator: Optional[torch.Generator] = None
+                   ) -> TrainStepOutput:
+        model = state.model
+        valid_all = tuple(bool(v) for v in batch["lane_valid"])
+        block = lane_block(len(valid_all))
+        N = bv_predict.shape[0]
+        if N != len(valid_all[block]):
+            raise ValueError(f"the carry holds {N} lanes and this step's "
+                             f"block of the batch {len(valid_all[block])}")
+        ins = {"batch": {k: v for k, v in batch.items()
+                         if isinstance(v, torch.Tensor)},
+               "bv_predict": bv_predict}
+        if tcfg.pose_noise_level > 0:
+            # drawn for the whole batch, then this block's lanes: each
+            # lane's draw is the one-process step's
+            poses = batch["poses"]
+            eps_r, eps_t = draw_pose_noise(
+                poses.new_empty((len(valid_all), *poses.shape[1:])),
+                generator)
+            ins["eps"] = (eps_r[block], eps_t[block])
+        loss, bv_next, depth_low = run(
+            model, ins, (valid_all, tuple(bool(v) for v in bv_valid)))
+        with step_numerics(False), deterministic_backward():
+            if reduce is not None:
+                loss = reduce(model, loss)
+            state.apply_gradients(clip_run)
         return TrainStepOutput(state, loss, bv_next, depth_low)
 
     train_step.lane_block = lane_block

@@ -488,3 +488,99 @@ def test_graphed_rollout_equals_eager(cuda_device, fast_knet):
     assert counts[0] == counts[1] == (T, T, 10 * (T - 1) if fast_knet else 0)
     for got, want in zip(*runs):
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_lanes", [1, 2])
+def test_graphed_train_step_equals_eager(cuda_device, n_lanes):
+    """``make_train_step(graph=True)`` at 96x64, D=8 (feature_dim 16), the
+    campaign's clip (2.0) and pose noise (0.02), 4 steps whose lane and
+    carry validity change: every loss, carry and depth map, and every
+    parameter, gradient and Adam moment after them, equal the eager
+    step's bit for bit; the gradients stay in their tensors, and the
+    prediction kernel counts one launch a step through the replays."""
+    from neuralrgbd_tpu_torch.config import ModelConfig, TrainConfig
+    from neuralrgbd_tpu_torch.data.synthetic import synthetic_batch
+    from neuralrgbd_tpu_torch.train.loop import upload_batch
+    from neuralrgbd_tpu_torch.train.step import (create_train_state,
+                                                 make_train_step)
+
+    cfg = ModelConfig(feature_dim=16, kv_feature_dim=16, ndepth=8,
+                      d_min=0.5, d_max=4.0)
+    tcfg = TrainConfig(lr=1e-4, grad_clip_max=2.0, pose_noise_level=0.02)
+    H, W = 64, 96
+    schedule = ([([1], [0]), ([1], [1]), ([1], [1]), ([1], [0])]
+                if n_lanes == 1 else
+                [([1, 1], [0, 0]), ([1, 1], [1, 1]), ([1, 0], [1, 1]),
+                 ([1, 1], [1, 0])])
+    batches = []
+    for t in range(len(schedule)):
+        b = synthetic_batch(cfg, n_lanes=n_lanes, img_hw=(H, W), seed=t)[0]
+        del b["dmap_up4_imgsize_digit"]
+        batches.append(b)
+    runs = []
+    for graph in (False, True):
+        state = create_train_state(cfg, tcfg, device=cuda_device)
+        grads = [p.grad for p in state.model.parameters()]
+        step = make_train_step(cfg, tcfg, graph=graph)
+        gen = torch.Generator(device=cuda_device).manual_seed(0)
+        carry = torch.full((n_lanes, 8, H // 4, W // 4), -math.log(8.0),
+                           device=cuda_device)
+        kresample.launches = 0
+        outs = []
+        for b, (lane_valid, bv_valid) in zip(batches, schedule):
+            b = dict(b, lane_valid=np.array(lane_valid, bool))
+            out = step(state, upload_batch(b, cuda_device), carry, bv_valid,
+                       gen)
+            carry = out.bv_predict
+            outs.append([out.loss.clone(), out.bv_predict.clone(),
+                         out.depth_lowres.clone()])
+        torch.cuda.synchronize()
+        assert kresample.launches == len(schedule)
+        assert all(p.grad is g for p, g in zip(state.model.parameters(),
+                                                grads))
+        opt = state.optimizer.state
+        runs.append((outs, [(p.detach().clone(), p.grad.clone(),
+                             opt[p]["exp_avg"].clone(),
+                             opt[p]["exp_avg_sq"].clone())
+                            for p in state.model.parameters()]))
+    (want, want_p), (got, got_p) = runs
+    for a, b in zip(got, want):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    for a, b in zip(got_p, want_p):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_graphed_lba_program_equals_eager(cuda_device):
+    """``make_lba_program(graph=True)`` on a smooth 2-view problem at
+    96x64, 20 iterations a scale: two calls (the capture, then a replay)
+    equal the eager program bit for bit, NaN equal to NaN."""
+    from neuralrgbd_tpu_torch.ops.sweep import backward_warp_by_depth
+    from neuralrgbd_tpu_torch.pose.lba import make_lba_program
+
+    H, W = 64, 96
+    Ks = [np.array([[60.0 / s, 0, W / s / 2], [0, 60.0 / s, H / s / 2],
+                    [0, 0, 1]], np.float32) for s in (4, 2, 1)]
+    cams = [camera.camera_from_K(K, cuda_device) for K in Ks]
+    ys, xs = np.mgrid[0:H, 0:W].astype(np.float32)
+    src = torch.from_numpy(np.stack(
+        [np.sin(xs / 7.0 + c) + np.cos(ys / 5.0 - c) for c in range(3)],
+        -1)).to(cuda_device)
+    dmap = torch.full((H, W), 2.0, device=cuda_device)
+    t_true = torch.tensor([0.06, -0.03, 0.02], device=cuda_device)
+    ref = backward_warp_by_depth(src[None], dmap,
+                                 torch.eye(3, device=cuda_device)[None],
+                                 t_true[None], cams[-1])[0]
+    inits = torch.eye(4, device=cuda_device).repeat(2, 1, 1)
+    inits[:, :3, 3] = t_true + torch.tensor([[0.03, 0.02, -0.02],
+                                             [-0.02, 0.01, 0.015]],
+                                            device=cuda_device)
+    args = (ref, src.expand(2, H, W, 3).contiguous(), dmap,
+            torch.ones_like(dmap), inits)
+    want = make_lba_program(cams)(*args)
+    graphed = make_lba_program(cams, graph=True)
+    for _ in range(2):
+        got = graphed(*args)
+        assert torch.equal(got.isnan(), want.isnan())
+        assert torch.equal(got.nan_to_num(), want.nan_to_num())
