@@ -169,7 +169,9 @@ Phases, each printing its own lines:
    ``run_trajectory`` (the same frames in ``scene_path_info.txt``,
    numbered by JAX's two conventions, under JAX's lockstep header), a second run equal to the first,
    0 main-thread host syncs, ``cli.test_kvnet --multi_device --traj_idx 0
-   1`` on phase 14's ``.tar`` equal to the function's lanes; then ms per
+   1`` on phase 14's ``.tar`` equal to the function's lanes, its
+   ``mesh=None`` printed and 1 device on this one card (JAX's rule,
+   ``parallel.lane_mesh``; ``lockstep_cards.py`` runs it on 4); then ms per
    lockstep frame at N = 1, 2 and 4 equal 12-frame lanes against N single
    runs, in turns, twice (CUDA events after each step);
 24. data-parallel training (``parallel.make_sharded_train_step``) through
@@ -317,6 +319,7 @@ from neuralrgbd_tpu_torch.ops.rotations import rotation_to_quat
 from neuralrgbd_tpu_torch.ops.sampling import _pixel_to_normalized
 from neuralrgbd_tpu_torch.ops.sweep import (_sweep_pixel_coords,
                                             backward_warp_by_depth)
+from neuralrgbd_tpu_torch.parallel.mesh import lane_mesh
 from neuralrgbd_tpu_torch.pose.lba import make_lba_program
 from neuralrgbd_tpu_torch.train import step as train_step_mod
 from neuralrgbd_tpu_torch.train.loop import upload_batch
@@ -3035,6 +3038,14 @@ def phase_lockstep(model, device, loop_info: dict, tmp: str) -> dict:
         + ["--multi_device", "--traj_idx", "0", "1"])
     cli_launches = read_launches()
     printed = [ln for ln in out.splitlines() if ln.startswith("trajectory")]
+    # mesh=None takes JAX's rule over the cards this process sees: one here
+    chose = [ln for ln in out.splitlines() if ln.startswith("lockstep mesh")]
+    print(f"  the CLI's mesh=None: {chose}; lane_mesh({n}, {device}): "
+          f"{lane_mesh(n, device)}", flush=True)
+    check(chose == [f"lockstep mesh: 1 device(s) {device}, 2 lane(s) each"]
+          and lane_mesh(n, device) == [device],
+          f"mesh=None on this one card: 1 device (JAX's rule over "
+          f"{torch.cuda.device_count()} visible card(s))")
     cli_dirs = [os.path.join(tmp, "lock_cli", f"loop_{i}") for i in range(2)]
     check(printed == [f"trajectory {i}: exported {counts[i]} frames"
                       for i in range(2)]

@@ -51,9 +51,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "(train_KVNet.py:229-237)")
     p.add_argument("--res_dir", type=str, default="results")
     p.add_argument("--multi_device", action="store_true",
-                   help="run the listed --traj_idx trajectories in lockstep "
-                        "on --device: one step call per frame for all of "
-                        "them (infer.loop.run_trajectories_parallel)")
+                   help="run the listed --traj_idx trajectories in lockstep, "
+                        "one per device (data mesh): over the largest "
+                        "divisor of their count that fits the visible "
+                        "cards, or one CPU device with --device cpu "
+                        "(infer.loop.run_trajectories_parallel)")
     p.add_argument("--chunk_t", type=int, default=32,
                    help="frames per copy of the maps to the host; above 1 "
                         "each step replays its compiled program (a CUDA "

@@ -25,7 +25,9 @@ The key is the model, the device, ``static`` and the inputs' shapes and
 dtypes: for the step, the lane count N, the tuple of per-lane validity and
 whether features come precomputed. The graphs of one ``StepGraph`` on one
 device share one memory pool (``torch.cuda.graph_pool_handle``); a graph
-replays in whatever order, since it holds its own inputs and outputs.
+replays in whatever order, since it holds its own inputs and outputs. A
+key is captured on a stream of its own device, so the lockstep loop's
+replicas, one per card, each capture and replay their own graphs.
 
 The first call of a key runs ``fn`` eagerly on the static inputs: that
 warm-up fills the one-time caches (``d_candi`` on the device, the
@@ -142,9 +144,12 @@ class Capture(NamedTuple):
 # every key captured in this process, in order: a run's captures are the
 # entries it added
 captures: list[Capture] = []
-# one warm-up stream per device: cuBLAS keeps a workspace per stream it
-# has run on (32 MiB), so a new stream per capture would keep adding them
-_warmup_streams: dict = {}
+# one warm-up and one capture stream per device: cuBLAS keeps a workspace
+# per stream it has run on (32 MiB), so a new stream per capture would keep
+# adding them; and ``torch.cuda.graph``'s own capture stream is one for
+# the process, made on the card current at its first capture, where a
+# capture of another card's work would record none of it
+_streams: dict = {}
 
 
 class StepGraph:
@@ -207,19 +212,22 @@ class StepGraph:
             return _Entry(model, params, versions, ins,
                           self._fn(model, ins, static), None, None)
         # the warm-up on a side stream; it is this call's result
-        if device not in _warmup_streams:
-            _warmup_streams[device] = torch.cuda.Stream(device)
-        side = _warmup_streams[device]
+        if device not in _streams:
+            _streams[device] = (torch.cuda.Stream(device),
+                                torch.cuda.Stream(device))
+        side, capture = _streams[device]
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
             first = self._fn(model, ins, static)
         torch.cuda.current_stream(device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        pool = self._pools.setdefault(device, torch.cuda.graph_pool_handle())
-        with torch.cuda.device(device), recording() as tally, \
-                torch.cuda.graph(graph, pool=pool,
-                                 capture_error_mode="thread_local"):
-            outs = self._fn(model, ins, static)
+        with torch.cuda.device(device):
+            pool = self._pools.setdefault(device,
+                                          torch.cuda.graph_pool_handle())
+            with recording() as tally, \
+                    torch.cuda.graph(graph, pool=pool, stream=capture,
+                                     capture_error_mode="thread_local"):
+                outs = self._fn(model, ins, static)
         current = torch.cuda.current_stream(device)
         _copy_into(outs, first)
         for t in _leaves(first):      # freed only once the copy has run

@@ -13,7 +13,8 @@ work to the card and never waits for it:
 - the maps are quantized to the pgm contract on the device (``_q16``), and
   every ``chunk_t`` frames they go down in ONE non-blocking copy into
   pinned memory; an export worker waits on that copy's event and writes
-  the files, with at most 3 chunks in flight.
+  the files, with at most 3 chunks in flight per device (counted over
+  all devices).
 
 With ``cache_features`` each frame is featurized once, when it first
 enters a window (``infer/step.make_frame_features``), and its maps stay on
@@ -22,7 +23,10 @@ the device, keyed by frame index, for every later window.
 ``run_trajectories_parallel`` runs the same loop over N trajectories in
 lockstep: each lockstep frame is one step call for all lanes of a device
 (a forward per lane, one prediction launch), every lane with its own
-frames, feature cache, carry and output contract.
+frames, feature cache, carry and output contract. As JAX's, it spreads
+the lanes over the cards the process sees (``parallel.lane_mesh``), one
+replica of the model on each; this thread issues every card's step in
+turn, waiting for none of them.
 
 At ``chunk_t > 1`` each step call replays a captured program, the
 counterpart of JAX's chunked runners (``_run_trajectory_chunked``,
@@ -44,6 +48,7 @@ from __future__ import annotations
 
 import math
 import os
+import time
 from collections import OrderedDict
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Optional
@@ -186,7 +191,10 @@ class ChunkExporter:
     writes the chunk's files. The caller's thread waits only while
     ``in_flight`` chunks are still being written, counted over every lane
     and device, so the pinned memory in flight does not grow with the
-    number of lanes.
+    number of lanes (the loop gives 3 per device: in lockstep every device
+    sends its chunk down on the same frame). ``wait_s`` sums the seconds
+    the caller's thread waited for that bound (in ``add`` and ``submit``;
+    ``finish``'s wait for the last chunks is not counted).
 
     ``res_dirs``: each lane's output directory (``add``'s ``lane``
     indexes the list)."""
@@ -198,6 +206,7 @@ class ChunkExporter:
         self._futures: list = []
         self._queued: dict = {}       # device -> (entries, maps)
         self._rows = [[] for _ in self._res_dirs]  # rows of written chunks
+        self.wait_s = 0.0
 
     def add(self, frame_cnt: int, raw: np.ndarray, path: str,
             maps: torch.Tensor, lane: int = 0) -> None:
@@ -222,7 +231,9 @@ class ChunkExporter:
         self._futures.append(self._pool.submit(_export_chunk, entries, host,
                                                copied))
         while len(self._futures) > self._in_flight:
+            t0 = time.perf_counter()
             self._collect(self._futures.pop(0))
+            self.wait_s += time.perf_counter() - t0
 
     def _collect(self, future: Future) -> None:
         for lane, row in future.result():
@@ -311,7 +322,8 @@ def _run_lanes(models: list, cfg: ModelConfig, trajs, res_dirs, t_win_r: int,
         os.makedirs(res_dir, exist_ok=True)
 
     lanes: list = []
-    exporter = ChunkExporter(res_dirs, chunk_t)
+    exporter = ChunkExporter(res_dirs, chunk_t,
+                             in_flight=3 * len(set(devices)))
     try:
         for i, traj in enumerate(trajs):
             lanes.append(_Lane(traj, devices[i // per_dev], span, lead,
@@ -413,6 +425,12 @@ def _run_lanes(models: list, cfg: ModelConfig, trajs, res_dirs, t_win_r: int,
     return [lane.count for lane in lanes]
 
 
+def _device_of(model: KVNet) -> torch.device:
+    """Where ``model``'s parameters are: the device whose kind
+    ``run_trajectories_parallel``'s mesh takes."""
+    return next(model.parameters()).device
+
+
 def run_trajectory(
     model: KVNet,
     cfg: ModelConfig,
@@ -432,7 +450,7 @@ def run_trajectory(
     The loop runs wherever ``model`` is (the card for a model built there).
     ``chunk_t``: frames per copy to the host. The maps of ``chunk_t``
     frames go down in one copy, which the export worker waits for; the
-    main thread waits only when 3 chunks are still being written. As in
+    main thread waits only while 3 chunks are still being written. As in
     JAX, ``chunk_t > 1`` runs the compiled step, each step call a replay
     of a captured graph, and ``chunk_t=1`` the eager per-frame step;
     ``graph`` (None: by ``chunk_t``) chooses either at any ``chunk_t``.
@@ -483,30 +501,39 @@ def run_trajectories_parallel(
     one (the scene name's characters two spaces apart). The lanes must
     share ``dpv_size_wh``.
 
-    ``mesh=None`` puts every lane on the model's device: one step call per
-    lockstep frame takes them all (one forward per lane, ONE prediction
-    launch). A ``mesh`` (``parallel.make_mesh``) of several devices holds
-    a replica of ``model`` on each (``parallel.replicate``), and lane i
-    runs on device ``i // (N / n_dev)``, JAX's contiguous ``P("data")``
-    blocks; N must divide evenly over the mesh.
+    The lanes run one per device of a data mesh, as JAX's do: a ``mesh``
+    (``parallel.make_mesh``) holds a replica of ``model`` on each device
+    (``parallel.replicate``; ``model`` itself on its own device), and lane
+    i runs on device ``i // (N / n_dev)``, JAX's contiguous ``P("data")``
+    blocks; N must divide evenly over the mesh. ``mesh=None`` takes JAX's:
+    the largest divisor of N that fits the cards this process sees, one
+    CPU device for a model on the CPU (``parallel.lane_mesh``); on one
+    card, all lanes batch onto it. Each lockstep frame, one step call per
+    device takes its active lanes (one forward per lane, ONE prediction
+    launch), each device's calls issued in turn from this thread.
 
     ``chunk_t``: lane-frames per copy to the host, per device (at most 3
-    chunks in flight over all lanes). ``cache_features``: as
+    chunks in flight per device). ``cache_features``: as
     ``run_trajectory``, each lane with its own feature cache. ``tf32``:
     see ``make_infer_step``. ``graph``: as ``run_trajectory``; ragged
     lanes add keys (each lane count and carry validity seen).
     """
-    from neuralrgbd_tpu_torch.parallel.mesh import replicate
+    from neuralrgbd_tpu_torch.parallel.mesh import lane_mesh, replicate
 
     if chunk_t < 1:
         raise ValueError(f"chunk_t must be >= 1, got {chunk_t}")
     t_win_r = t_win_r if t_win_r is not None else cfg.t_win_r
     n = len(trajs)
-    mesh = [next(model.parameters()).device] if mesh is None else list(mesh)
+    mesh = (lane_mesh(n, _device_of(model)) if mesh is None
+            else list(mesh))
     if n % len(mesh):
         raise ValueError(
             f"{n} lanes do not divide evenly over the {len(mesh)}-device "
             f"mesh")
+    if verbose:
+        print(f"lockstep mesh: {len(mesh)} device(s) "
+              f"{' '.join(map(str, mesh))}, {n // len(mesh)} lane(s) each",
+              flush=True)
     assert all(t.dpv_size_wh == trajs[0].dpv_size_wh for t in trajs), \
         "lockstep lanes must share the operating point"
     return _run_lanes(replicate(model, mesh), cfg, trajs, res_dirs, t_win_r,

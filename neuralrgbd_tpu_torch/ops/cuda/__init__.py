@@ -11,6 +11,13 @@ graph's capture (``recording``) the kernel does not run: the launch goes
 into the graph, and into the graph's tally instead of the counter. Each
 replay of the graph adds its tally (``replayed``), so ``launches`` counts
 the launches that ran, eager or replayed, on every path.
+
+Each C entry makes its tensors' card the calling thread's current device
+(``cudaSetDevice``) and does not set it back; each wrapper calls it inside
+``torch.cuda.device(dev)``, which gives the caller's device back as
+PyTorch does (lazily: it creates no context on a card the process has not
+used), so a launch on another card moves nothing that reads "the current
+device" (the lockstep loop's replicas, one per card).
 """
 
 from __future__ import annotations

@@ -199,11 +199,12 @@ def conv3d_kernel(x: torch.Tensor, w,
                               device=dev)
         stats = torch.empty((2, N), dtype=torch.float32, device=dev)
     fn = build.kernel_function(NAME, _ARGTYPES)
-    err = fn(xb.data_ptr(), wp.data.data_ptr(), out.data_ptr(),
-             partial.data_ptr() if with_stats else None,
-             stats.data_ptr() if with_stats else None,
-             D, H, W, C, N, CP, NP, int(out_dtype == torch.float32),
-             dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):     # the caller's current device kept
+        err = fn(xb.data_ptr(), wp.data.data_ptr(), out.data_ptr(),
+                 partial.data_ptr() if with_stats else None,
+                 stats.data_ptr() if with_stats else None,
+                 D, H, W, C, N, CP, NP, int(out_dtype == torch.float32),
+                 dev.index, torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch(NAME, err)
     count_launch(__name__)
     if with_stats:

@@ -170,10 +170,11 @@ def resample_kernel(dpv: torch.Tensor, mats: torch.Tensor, K: torch.Tensor,
     if _launch is None:
         _launch = build.kernel_function(NAME, _ARGTYPES)
     out = torch.empty((N, D, H, W), dtype=torch.float32, device=dev)
-    err = _launch(dpv.data_ptr(), mats.data_ptr(), K.data_ptr(),
-                  d_candi.data_ptr(), out.data_ptr(), N, D, H, W, int(invert),
-                  float(padding_value), lo, hi, dev.index,
-                  torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):     # the caller's current device kept
+        err = _launch(dpv.data_ptr(), mats.data_ptr(), K.data_ptr(),
+                      d_candi.data_ptr(), out.data_ptr(), N, D, H, W,
+                      int(invert), float(padding_value), lo, hi, dev.index,
+                      torch.cuda.current_stream(dev).cuda_stream)
     if err:
         build.check_launch(NAME, err)
     count_launch(__name__)

@@ -69,11 +69,12 @@ def sweep_kernel(ref_feat: torch.Tensor, src_feats: torch.Tensor,
     kept = (torch.empty((V, D, H, W, k), dtype=torch.float32, device=dev)
             if k else None)
     fn = build.kernel_function(NAME, _ARGTYPES)
-    err = fn(src_feats.data_ptr(), ref_feat.data_ptr(), crd.data_ptr(),
-             cost.data_ptr(), kept.data_ptr() if k else None, V, D, H, W, C,
-             k, int(feat_dist == "L1"), float(sigma), *src_feats.stride(),
-             *ref_feat.stride(), dev.index,
-             torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):     # the caller's current device kept
+        err = fn(src_feats.data_ptr(), ref_feat.data_ptr(), crd.data_ptr(),
+                 cost.data_ptr(), kept.data_ptr() if k else None, V, D, H, W,
+                 C, k, int(feat_dist == "L1"), float(sigma),
+                 *src_feats.stride(), *ref_feat.stride(), dev.index,
+                 torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch(NAME, err)
     count_launch(__name__)
     return (cost, kept) if k else cost

@@ -6,9 +6,11 @@ The reference's whole distribution story is single-process
 (train_KVNet.py:261-262, docs/TR.md:14). JAX puts the lanes on a 1-D
 ``data`` mesh, params replicated, and XLA inserts the gradient psum. Here:
 
-- a mesh is a list of ``torch.device``s (``make_mesh``), and a batch is
-  split into contiguous lane blocks, lane i on device ``i // (N / n_dev)``
-  as JAX's ``P("data")`` blocks (``shard_batch``, ``lane_block``);
+- a mesh is a list of ``torch.device``s (``make_mesh``; ``lane_mesh``
+  is JAX's choice for N lanes, the largest divisor of N that fits the
+  cards), and a batch is split into contiguous lane blocks, lane i on
+  device ``i // (N / n_dev)`` as JAX's ``P("data")`` blocks
+  (``shard_batch``, ``lane_block``);
 - inference keeps one ``KVNet`` replica per device (``replicate``), each
   device stepping its block through ``infer.step.make_infer_step``
   (``make_sharded_infer_step``; the lockstep loop,
@@ -59,6 +61,25 @@ def make_mesh(n_devices: Optional[int] = None, device: str = "cuda") -> list:
             f"make_mesh: asked for {n_devices or 'all'} CUDA card(s) and "
             f"this process sees {have}; pass device='cpu' for a CPU mesh")
     return [torch.device("cuda", i) for i in range(n)]
+
+
+def mesh_size(n_lanes: int, n_devices: int) -> int:
+    """JAX's ``mesh=None`` rule for ``n_lanes`` lockstep lanes
+    (``neuralrgbd_tpu/infer/loop.py:757-759``): the largest ``d`` in
+    ``1..min(n_lanes, n_devices)`` that divides ``n_lanes``."""
+    return max(d for d in range(1, min(n_lanes, n_devices) + 1)
+               if n_lanes % d == 0)
+
+
+def lane_mesh(n_lanes: int, device) -> list:
+    """The mesh of ``n_lanes`` lockstep lanes for a model on ``device``:
+    ``mesh_size`` of the cards this process sees (JAX's
+    ``len(jax.devices())``) for a model on a card, one CPU device for one
+    on the CPU. Raises through ``make_mesh`` when the process sees no
+    card."""
+    if torch.device(device).type == "cpu":
+        return make_mesh(1, device="cpu")
+    return make_mesh(mesh_size(n_lanes, max(torch.cuda.device_count(), 1)))
 
 
 def lane_block(n_lanes: int, index: int, count: int) -> slice:

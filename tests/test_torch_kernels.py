@@ -399,7 +399,8 @@ def test_sweep_l2_is_the_fused_kernel(cuda_device):
 def test_lockstep_lanes_launch_per_lane_and_equal_their_runs(cuda_device,
                                                              tmp_path,
                                                              monkeypatch):
-    """``run_trajectories_parallel`` on the card at 96x64, D=8, two
+    """``run_trajectories_parallel`` on one card (the mesh given: on a
+    host with more, ``mesh=None`` spreads the lanes) at 96x64, D=8, two
     scenes of 10 and 8 frames: each step call launches the sweep once per
     active lane and the prediction once, and each lane's files equal its
     own ``run_trajectory``'s bit for bit (``scene_path_info.txt`` under
@@ -409,6 +410,7 @@ def test_lockstep_lanes_launch_per_lane_and_equal_their_runs(cuda_device,
     from neuralrgbd_tpu_torch.data.synthetic import write_scannet_scene
     from neuralrgbd_tpu_torch.infer import loop
     from neuralrgbd_tpu_torch.models.kvnet import KVNet
+    from neuralrgbd_tpu_torch.parallel import make_mesh
 
     cfg = ModelConfig(feature_dim=16, kv_feature_dim=16, ndepth=8,
                       d_min=0.5, d_max=4.0)
@@ -435,6 +437,7 @@ def test_lockstep_lanes_launch_per_lane_and_equal_their_runs(cuda_device,
     monkeypatch.setattr(loop, "make_infer_step", counted_make)
     lanes = [str(tmp_path / f"lane{i}") for i in range(2)]
     assert loop.run_trajectories_parallel(model, cfg, trajs, lanes,
+                                          mesh=make_mesh(1),
                                           verbose=False) == [5, 3]
     assert [c[0] for c in calls] == [2, 2, 2, 1, 1]
     assert all(b1 == n and b2 == 1 for n, b1, b2 in calls)
@@ -584,3 +587,98 @@ def test_graphed_lba_program_equals_eager(cuda_device):
         got = graphed(*args)
         assert torch.equal(got.isnan(), want.isnan())
         assert torch.equal(got.nan_to_num(), want.nan_to_num())
+
+
+@pytest.fixture
+def second_card():
+    """``cuda:1``, with ``cuda:0`` the thread's current device."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs: a launch on the second card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    return torch.device("cuda", 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["sweep_fused", "resample", "conv3d"])
+def test_launch_on_another_card_keeps_the_current_device(second_card,
+                                                         kernel):
+    """Each kernel entry launched on ``cuda:1`` from a thread on ``cuda:0``
+    leaves the thread on ``cuda:0`` (its C entry sets the launch's card;
+    the wrapper gives the caller's back), and agrees with its twin there
+    (this file's tolerances)."""
+    dev = second_card
+    if kernel == "sweep_fused":
+        ref, srcs, Rs, ts, cam, d = _sweep_inputs(device=dev)
+        coords = _sweep_pixel_coords(cam, Rs, ts, d, 10, 14)
+        got = ksweep.sweep_kernel(ref, srcs, coords, 10.0)
+        want, tol = ksweep.sweep_plain(ref, srcs, coords, 10.0), 1e-4
+    elif kernel == "resample":
+        lv, poses, K, d = _lanes(device=dev)
+        got = kresample.predict_next_cuda(lv, poses, K, d, -math.log(8))
+        want = kresample.predict_next_plain(lv, poses, K, d, -math.log(8))
+        tol = 1e-5
+    else:
+        x, w = _conv_inputs(device=dev)
+        got = kconv.conv3d_kernel(x, w, out_dtype=torch.float32)
+        want, tol = kconv.conv3d_plain(x, w, torch.float32), 1e-5
+    assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(dev)
+    assert got.device == dev
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=tol)
+
+
+@pytest.mark.cuda
+def test_lockstep_on_two_cards_equals_each_lane_alone(second_card,
+                                                      tmp_path):
+    """``run_trajectories_parallel`` graphed (``chunk_t`` 32) on a mesh of
+    ``cuda:0`` and ``cuda:1`` at 96x64, D=8, two scenes of 10 and 8
+    frames: each lane's maps and images equal its own ``run_trajectory``'s
+    on ``cuda:0`` bit for bit (each card captures its own graphs, on its
+    own stream), the second lane's replica lives on ``cuda:1``, and the
+    thread ends on ``cuda:0``."""
+    from neuralrgbd_tpu_torch.config import ModelConfig
+    from neuralrgbd_tpu_torch.data.scannet import make_trajectory
+    from neuralrgbd_tpu_torch.data.synthetic import write_scannet_scene
+    from neuralrgbd_tpu_torch.infer import loop
+    from neuralrgbd_tpu_torch.models.kvnet import KVNet
+    from neuralrgbd_tpu_torch.parallel import make_mesh
+    from neuralrgbd_tpu_torch.parallel import mesh as mesh_mod
+
+    cfg = ModelConfig(feature_dim=16, kv_feature_dim=16, ndepth=8,
+                      d_min=0.5, d_max=4.0)
+    trajs = []
+    for i, n in enumerate((10, 8)):
+        write_scannet_scene(str(tmp_path / f"s{i}"), n_frames=n, seed=i)
+        trajs.append(make_trajectory(0, 5, str(tmp_path / f"s{i}"),
+                                     img_size_wh=(96, 64),
+                                     d_candi=cfg.d_candi))
+    model = KVNet(cfg, device="cuda:0", single_refine=True)
+    replicas, replicate = [], mesh_mod.replicate
+
+    def kept(*args):
+        replicas.extend(replicate(*args))
+        return replicas
+
+    lanes = [str(tmp_path / f"lane{i}") for i in range(2)]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(mesh_mod, "replicate", kept)
+        assert loop.run_trajectories_parallel(
+            model, cfg, trajs, lanes, mesh=make_mesh(2),
+            verbose=False) == [5, 3]
+    assert torch.cuda.current_device() == 0
+    assert replicas[0] is model
+    assert next(replicas[1].parameters()).device == second_card
+    for traj, lane in zip(trajs, lanes):
+        solo = lane + "_solo"
+        loop.run_trajectory(model, cfg, traj, solo, verbose=False)
+        for name in sorted(os.listdir(lane)):
+            with open(os.path.join(lane, name), "rb") as a, \
+                    open(os.path.join(solo, name), "rb") as b:
+                got, want = a.read(), b.read()
+            if name == "scene_path_info.txt":
+                got, want = (x.decode().split("\n") for x in (got, want))
+                assert got[0] == "  ".join(want[0])
+                got, want = got[1:], want[1:]
+            assert got == want, name

@@ -272,6 +272,8 @@ def test_cli_multi_device_matches_jax(weights, tmp_path, capsys):
     port_cli(common + ["--res_dir", str(tmp_path / "port"), "--device",
                        "cpu"])
     out = capsys.readouterr().out.splitlines()
+    # --device cpu: one CPU device, where JAX's mesh=None took 2 devices
+    assert "lockstep mesh: 1 device(s) cpu, 2 lane(s) each" in out
     assert out[-2:] == [f"trajectory {i}: exported {n} frames"
                         for i, n in enumerate(COUNTS3[:2])]
     for i, n in enumerate(COUNTS3[:2]):

@@ -31,10 +31,11 @@ its model is built on the card unless the caller asks for the CPU.
   usage line (their behaviour against the
   originals: ``tests/test_torch_host_tools.py``);
 - hygiene: no ``.py`` file of the port (``parallel/`` among them), nor
-  ``chip_smoke.py`` or ``dryrun_dp_torch.py``, imports ``jax``, ``flax``
-  or ``neuralrgbd_tpu`` (checked on the syntax tree), and importing every
-  port module and ``dryrun_dp_torch`` leaves ``jax`` and
-  ``neuralrgbd_tpu`` out of ``sys.modules``.
+  ``chip_smoke.py``, ``dryrun_dp_torch.py`` or ``lockstep_cards.py``,
+  imports ``jax``, ``flax`` or ``neuralrgbd_tpu`` (checked on the syntax
+  tree), and importing every port module, ``dryrun_dp_torch`` and
+  ``lockstep_cards`` leaves ``jax`` and ``neuralrgbd_tpu`` out of
+  ``sys.modules``.
 """
 
 import ast
@@ -418,7 +419,8 @@ def _forbidden(name: str) -> bool:
 
 
 @pytest.mark.parametrize(
-    "path", PORT_FILES + [REPO / "chip_smoke.py", REPO / "dryrun_dp_torch.py"],
+    "path", PORT_FILES + [REPO / "chip_smoke.py", REPO / "dryrun_dp_torch.py",
+                          REPO / "lockstep_cards.py"],
     ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_import_in_source(path):
     bad = [n for n in _imported_modules(path) if _forbidden(n)]
@@ -442,7 +444,7 @@ def test_the_parallel_package_is_checked():
 def test_importing_the_port_loads_no_jax():
     mods = [".".join(p.relative_to(REPO).with_suffix("").parts)
             .removesuffix(".__init__") for p in PORT_FILES]
-    mods.append("dryrun_dp_torch")
+    mods += ["dryrun_dp_torch", "lockstep_cards"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
