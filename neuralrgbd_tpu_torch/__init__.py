@@ -15,8 +15,9 @@ Layer map:
 - ``ops``         camera, grid sampling, plane sweep, DPV algebra (plain torch).
 - ``ops.cuda``    hand-written CUDA C++ kernels for sm_90a (sources in
                   ``csrc/``: the plane sweep, the DPV prediction step and
-                  the 3x3x3 conv), each beside its plain PyTorch twin, and
-                  the fast K-Net chain on the conv kernel.
+                  the 3x3x3 conv, and the tracer's device stamp), each
+                  beside its plain PyTorch twin, and the fast K-Net chain
+                  on the conv kernel.
 - ``models``      D-Net feature extractor, K-Net, R-Net, KVNet as ``nn.Module``s,
                   with every head of the JAX KVNet (DPV, ``refine_dup``,
                   DGF's guided filter, ``refine_costv``, ``dnet_bayes``)
@@ -31,7 +32,9 @@ Layer map:
 - ``cli``         the test, evaluate and train command lines, the LBA and
                   DSO ones, and the ``.sens`` batch decoder.
 - ``utils``       the JAX->torch weight bridge, checkpoints, logging,
-                  timers for the card, the torch.profiler helpers.
+                  timers for the card, and tracing (``utils.profiler``:
+                  host spans, device stamps inside the step, Chrome
+                  traces, torch.profiler traces).
 - ``tools``       measurement scripts run on the card (kernel variants,
                   an older kernel beside the current one, the train CLI
                   data parallel against one process).

@@ -10,7 +10,8 @@ Example (the run_demo.sh operating point):
 
 Runs on the CUDA card unless ``--device cpu``. Writes ``d_*.pgm``,
 ``conf_*.pgm``, ``img_*.png`` and ``scene_path_info.txt`` per trajectory
-(``infer/export.py``).
+(``infer/export.py``); with ``--trace_out PATH``, the run's spans and the
+card's stamps as a Chrome trace (``utils/profiler.py``).
 """
 
 from __future__ import annotations
@@ -74,6 +75,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="where the model runs: the CUDA card by default, "
                         "'cpu' on request")
+    p.add_argument("--trace_out", type=str, default=None,
+                   help="trace the run (utils.profiler: the loop's, the "
+                        "graph's and the exporter's spans, and the card's "
+                        "stamps at the step's module boundaries) and write "
+                        "it to this path as a Chrome trace when it ends")
     return p
 
 
@@ -130,7 +136,21 @@ def make_get_traj(args, cfg):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.trace_out is None:
+        return _run(args)
+    from neuralrgbd_tpu_torch.utils import profiler
 
+    profiler.enable([args.device])
+    try:
+        _run(args)
+    finally:
+        record = profiler.take()
+        profiler.write_chrome_trace(args.trace_out, record)
+        print(f"trace: {len(record['spans'])} spans, "
+              f"{len(record['stamps'])} stamps -> {args.trace_out}")
+
+
+def _run(args):
     from neuralrgbd_tpu_torch.infer.loop import (resolve_cache_features,
                                                  run_trajectories_parallel,
                                                  run_trajectory)

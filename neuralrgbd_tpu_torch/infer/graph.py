@@ -21,13 +21,16 @@ on in Python (the step's per-lane carry validity). It owns, per key:
   (``ops.cuda.recording``): each replay adds it to the kernels'
   ``launches``.
 
-The key is the model, the device, ``static`` and the inputs' shapes and
-dtypes: for the step, the lane count N, the tuple of per-lane validity and
-whether features come precomputed. The graphs of one ``StepGraph`` on one
-device share one memory pool (``torch.cuda.graph_pool_handle``); a graph
-replays in whatever order, since it holds its own inputs and outputs. A
-key is captured on a stream of its own device, so the lockstep loop's
-replicas, one per card, each capture and replay their own graphs.
+The key is the model, the device, ``static``, the inputs' shapes and
+dtypes and whether tracing is on (``utils.profiler.enabled``): for the
+step, the lane count N, the tuple of per-lane validity and whether
+features come precomputed; a key captured while tracing is on holds the
+step's device stamps, one captured while it is off none. The graphs of
+one ``StepGraph`` on one device share one memory pool
+(``torch.cuda.graph_pool_handle``); a graph replays in whatever order,
+since it holds its own inputs and outputs. A key is captured on a stream
+of its own device, so the lockstep loop's replicas, one per card, each
+capture and replay their own graphs.
 
 The first call of a key runs ``fn`` eagerly on the static inputs: that
 warm-up fills the one-time caches (``d_candi`` on the device, the
@@ -71,6 +74,12 @@ On CPU tensors there is no graph: a call copies its inputs into the same
 static buffers, runs ``fn`` on them and copies the result into the same
 static outputs. So the CPU tests run the copy-in, copy-out and aliasing
 logic that the card runs.
+
+With tracing on (``utils.profiler``) a call records its spans: a key's
+first call ``graph.capture`` (its key and device as attributes) around
+``graph.warmup`` (the eager run) and ``graph.record`` (the capture; on the
+CPU, the static outputs made), every later call ``graph.copy_in`` and
+``graph.replay`` (on the CPU, ``fn`` run on the static inputs).
 """
 
 from __future__ import annotations
@@ -81,6 +90,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from neuralrgbd_tpu_torch.ops.cuda import recording, replayed
+from neuralrgbd_tpu_torch.utils import profiler
 
 
 def _leaves(tree) -> list:
@@ -99,6 +109,8 @@ def _clone(tree):
         return tree.clone()
     if isinstance(tree, dict):
         return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_clone(x) for x in tree))
     if isinstance(tree, (tuple, list)):
         return type(tree)(_clone(x) for x in tree)
     return tree
@@ -174,7 +186,7 @@ class StepGraph:
         leaves = _leaves(inputs)
         device = (leaves[0] if leaves else next(model.parameters())).device
         shapes = tuple((tuple(t.shape), t.dtype) for t in leaves)
-        key = (id(model), device, static, shapes)
+        key = (id(model), device, static, shapes, profiler.enabled())
         entry = self._entries.get(key)
         if self._check == "addresses" and model is not None:
             now = _addresses(model)
@@ -189,17 +201,22 @@ class StepGraph:
                              if k[0] != id(model)}
             entry = None
         if entry is None:
-            t0 = time.perf_counter()
-            entry = self._entries[key] = self._capture(model, inputs, static)
-            captures.append(Capture(device, static, shapes,
-                                    1e3 * (time.perf_counter() - t0)))
+            with profiler.span("graph.capture", device=device, key=static):
+                t0 = time.perf_counter()
+                entry = self._entries[key] = self._capture(model, inputs,
+                                                           static)
+                captures.append(Capture(device, static, shapes,
+                                        1e3 * (time.perf_counter() - t0)))
             return entry.outputs
-        _copy_into(entry.inputs, inputs)
-        if entry.graph is None:
-            _copy_into(entry.outputs, self._fn(model, entry.inputs, static))
-        else:
-            entry.graph.replay()
-            replayed(entry.tally)
+        with profiler.span("graph.copy_in"):
+            _copy_into(entry.inputs, inputs)
+        with profiler.span("graph.replay"):
+            if entry.graph is None:
+                _copy_into(entry.outputs,
+                           self._fn(model, entry.inputs, static))
+            else:
+                entry.graph.replay()
+                replayed(entry.tally)
         return entry.outputs
 
     def _capture(self, model, inputs, static) -> _Entry:
@@ -209,19 +226,23 @@ class StepGraph:
         versions = _versions(params)
         ins = _clone(inputs)
         if device.type != "cuda":
-            return _Entry(model, params, versions, ins,
-                          self._fn(model, ins, static), None, None)
+            with profiler.span("graph.warmup"):
+                first = self._fn(model, ins, static)
+            # no graph: the static outputs are buffers of their own
+            with profiler.span("graph.record"):
+                outs = _clone(first)
+            return _Entry(model, params, versions, ins, outs, None, None)
         # the warm-up on a side stream; it is this call's result
         if device not in _streams:
             _streams[device] = (torch.cuda.Stream(device),
                                 torch.cuda.Stream(device))
         side, capture = _streams[device]
         side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
+        with profiler.span("graph.warmup"), torch.cuda.stream(side):
             first = self._fn(model, ins, static)
         torch.cuda.current_stream(device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(device):
+        with profiler.span("graph.record"), torch.cuda.device(device):
             pool = self._pools.setdefault(device,
                                           torch.cuda.graph_pool_handle())
             with recording() as tally, \

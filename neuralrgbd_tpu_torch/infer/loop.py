@@ -65,6 +65,7 @@ from neuralrgbd_tpu_torch.infer.export import export_frame, save_scene_path_info
 from neuralrgbd_tpu_torch.infer.step import (make_frame_features,
                                              make_infer_step)
 from neuralrgbd_tpu_torch.models.kvnet import KVNet
+from neuralrgbd_tpu_torch.utils import profiler
 
 
 TORCH_IMPORT_CACHE_WARNING = (
@@ -125,16 +126,19 @@ class _FrameSource:
     fp32 bytes) and normalized there as ``(u8/255 - mean)/std`` in fp32,
     the expression and order of the JAX loop's ``_DeviceFrameCache``, each
     step an IEEE division as in numpy (``data.preprocess.load_image``).
-    Only the main thread calls these; the pool threads only decode.
+    Only the main thread calls these; the pool threads only decode. With
+    tracing on, the main thread's wait on a decode is a ``decode.wait``
+    span (``lane``: the loop's lane, for its attributes).
     """
 
     def __init__(self, traj: Trajectory, device: torch.device,
-                 capacity: int, workers: int = 3):
+                 capacity: int, workers: int = 3, lane: int = 0):
         self._paths = traj.img_paths
         self._size = traj.img_size_wh
         # KITTI's centre crop after the resize (KittiTrajectory.raw_crop_w)
         self._crop_w = getattr(traj, "raw_crop_w", None)
         self._device = device
+        self._lane = lane
         self._capacity = capacity
         self._pool = ThreadPoolExecutor(max_workers=workers)
         self._raw: "OrderedDict[int, Future]" = OrderedDict()
@@ -156,7 +160,9 @@ class _FrameSource:
             self._raw.popitem(last=False)
 
     def raw(self, idx: int) -> np.ndarray:
-        return self._raw[idx].result()
+        with profiler.span("decode.wait", frame=idx, lane=self._lane,
+                           device=self._device):
+            return self._raw[idx].result()
 
     def get(self, idx: int) -> torch.Tensor:
         if idx not in self._dev:
@@ -171,15 +177,20 @@ class _FrameSource:
         self._pool.shutdown(wait=True, cancel_futures=True)
 
 
-def _export_chunk(entries, host: torch.Tensor, copied):
+def _export_chunk(entries, host: torch.Tensor, copied, device, parent):
     """Export worker: wait for the chunk's copy to the host, write its
     files, return ``(lane, scene_path_info row)`` per frame. Issues no CUDA
-    work."""
-    if copied is not None:
-        copied.synchronize()
-    dc = host.numpy().view(np.uint16)        # (2, n, H, W)
-    for j, (_, res_dir, batch_idx, raw, path) in enumerate(entries):
-        export_frame(res_dir, batch_idx, raw, dc[0, j], dc[1, j])
+    work. Its spans (``export.chunk`` around ``export.copy_wait`` and an
+    ``export.frame`` a frame) are children of ``parent``, the scene's."""
+    with profiler.span("export.chunk", device=device, parent=parent):
+        if copied is not None:
+            with profiler.span("export.copy_wait"):
+                copied.synchronize()
+        dc = host.numpy().view(np.uint16)        # (2, n, H, W)
+        for j, (lane, res_dir, batch_idx, raw, path) in enumerate(entries):
+            with profiler.span("export.frame", frame=batch_idx, lane=lane,
+                               device=device):
+                export_frame(res_dir, batch_idx, raw, dc[0, j], dc[1, j])
     return [(lane, [batch_idx, path])
             for lane, _, batch_idx, _, path in entries]
 
@@ -194,7 +205,10 @@ class ChunkExporter:
     number of lanes (the loop gives 3 per device: in lockstep every device
     sends its chunk down on the same frame). ``wait_s`` sums the seconds
     the caller's thread waited for that bound (in ``add`` and ``submit``;
-    ``finish``'s wait for the last chunks is not counted).
+    ``finish``'s wait for the last chunks is not counted: with tracing on,
+    the loop's ``scene.drain`` span holds it). With tracing on each wait
+    for the bound is an ``export.wait`` span, and the export threads' spans
+    are children of the span open where the exporter was made.
 
     ``res_dirs``: each lane's output directory (``add``'s ``lane``
     indexes the list)."""
@@ -206,6 +220,7 @@ class ChunkExporter:
         self._futures: list = []
         self._queued: dict = {}       # device -> (entries, maps)
         self._rows = [[] for _ in self._res_dirs]  # rows of written chunks
+        self._parent = profiler.current()
         self.wait_s = 0.0
 
     def add(self, frame_cnt: int, raw: np.ndarray, path: str,
@@ -229,11 +244,12 @@ class ChunkExporter:
         else:
             host, copied = maps, None
         self._futures.append(self._pool.submit(_export_chunk, entries, host,
-                                               copied))
+                                               copied, device, self._parent))
         while len(self._futures) > self._in_flight:
-            t0 = time.perf_counter()
-            self._collect(self._futures.pop(0))
-            self.wait_s += time.perf_counter() - t0
+            with profiler.span("export.wait", device=device):
+                t0 = time.perf_counter()
+                self._collect(self._futures.pop(0))
+                self.wait_s += time.perf_counter() - t0
 
     def _collect(self, future: Future) -> None:
         for lane, row in future.result():
@@ -264,13 +280,14 @@ class _Lane:
     and its count of exported frames."""
 
     def __init__(self, traj: Trajectory, device: torch.device, span: int,
-                 lead: int, capacity: int):
+                 lead: int, capacity: int, index: int = 0):
         self.traj = traj
         self.exts = [np.asarray(traj.pose_loader(i)) for i in range(len(traj))]
         self.pose_ok = [bool(np.isfinite(e).all()) for e in self.exts]
         self.K = traj.K_dpv.astype(np.float32)
         self.end = len(traj) - span - 1     # one past its last reference
-        self.frames = _FrameSource(traj, device, capacity=capacity)
+        self.frames = _FrameSource(traj, device, capacity=capacity,
+                                   lane=index)
         self.features: "OrderedDict[int, tuple]" = OrderedDict()
         self.capacity = capacity
         self.carry: Optional[torch.Tensor] = None  # valid prediction (D, h, w)
@@ -300,13 +317,26 @@ def _run_lanes(models: list, cfg: ModelConfig, trajs, res_dirs, t_win_r: int,
     of exported frames (JAX's ``row_counts``) and writes JAX's lockstep
     ``scene_path_info.txt`` header; otherwise files go by the frame's
     place in the sweep, skipped frames included (JAX's ``frame_cnt``).
-    Returns each lane's count of exported frames."""
+    Returns each lane's count of exported frames.
+
+    With tracing on (``utils.profiler``) the call is a ``scene`` span, whose
+    id every span under it carries as its request id (``scene``), export
+    threads included. Under it, on the main thread: ``scene.setup`` (the
+    step made, each lane's poses loaded and its frame source made), then per
+    step call ``step.call`` (``frame``: the reference index; ``device``),
+    the waits on a decoded frame (``decode.wait``) and on the exporter's
+    bound (``export.wait``), and ``scene.drain`` (the exporter's last
+    chunks written)."""
+    with profiler.span("scene"):
+        return _loop(models, cfg, trajs, res_dirs, t_win_r, step, verbose,
+                     chunk_t, cache_features, tf32, lockstep, graph)
+
+
+def _loop(models: list, cfg: ModelConfig, trajs, res_dirs, t_win_r: int,
+          step: int, verbose: bool, chunk_t: int, cache_features,
+          tf32: bool, lockstep: bool, graph: Optional[bool]) -> list:
+    """``_run_lanes``'s body, inside its ``scene`` span."""
     graph = chunk_t > 1 if graph is None else graph
-    infer_step = make_infer_step(cfg, tf32=tf32,
-                                 with_features=bool(cache_features),
-                                 graph=graph)
-    fe1 = make_frame_features(tf32, graph=graph)
-    captured = len(graph_mod.captures)
     D, V = cfg.ndepth, 2 * t_win_r
     w_dpv, h_dpv = trajs[0].dpv_size_wh
     span = t_win_r * step
@@ -325,9 +355,15 @@ def _run_lanes(models: list, cfg: ModelConfig, trajs, res_dirs, t_win_r: int,
     exporter = ChunkExporter(res_dirs, chunk_t,
                              in_flight=3 * len(set(devices)))
     try:
-        for i, traj in enumerate(trajs):
-            lanes.append(_Lane(traj, devices[i // per_dev], span, lead,
-                               capacity))
+        with profiler.span("scene.setup"):
+            infer_step = make_infer_step(cfg, tf32=tf32,
+                                         with_features=bool(cache_features),
+                                         graph=graph)
+            fe1 = make_frame_features(tf32, graph=graph)
+            captured = len(graph_mod.captures)
+            for i, traj in enumerate(trajs):
+                lanes.append(_Lane(traj, devices[i // per_dev], span, lead,
+                                   capacity, i))
         for frame_cnt, ref_indx in enumerate(range(lo, hi)):
             idxs = window_indices(ref_indx, t_win_r, step)
             n_ok = 0
@@ -378,16 +414,16 @@ def _run_lanes(models: list, cfg: ModelConfig, trajs, res_dirs, t_win_r: int,
                     "K": geo[b:].view(Ks.shape),
                     "pose_next": geo[a:b].view(nexts.shape),
                 }
+                feats = ()
                 if cache_features:
                     windows = [[lane.feature(fe1, model, i)
                                 for i in (*idxs, ref_indx)] for lane in sel]
-                    feats = tuple(torch.stack([torch.stack(
+                    feats = (tuple(torch.stack([torch.stack(
                         [f[j] for f in window]) for window in windows])
-                        for j in (0, 1))
+                        for j in (0, 1)),)
+                with profiler.span("step.call", frame=ref_indx, device=dev):
                     out = infer_step(model, batch, bv_predict, bv_valid,
-                                     feats)
-                else:
-                    out = infer_step(model, batch, bv_predict, bv_valid)
+                                     *feats)
                 # a graphed step overwrites its outputs at its next replay
                 carry = out.bv_predict.clone() if graph else out.bv_predict
                 for j, (i, lane) in enumerate(zip(ok, sel)):
@@ -405,7 +441,8 @@ def _run_lanes(models: list, cfg: ModelConfig, trajs, res_dirs, t_win_r: int,
                       f"{n_ok}/{len(lanes)} lanes", flush=True)
             elif verbose and n_ok:
                 print(f"Finished frame {frame_cnt + 1}/{hi - lo}", flush=True)
-        rows = exporter.finish()
+        with profiler.span("scene.drain"):
+            rows = exporter.finish()
         if verbose and graph:
             print(f"captured {len(graph_mod.captures) - captured} step "
                   f"graph(s)", flush=True)

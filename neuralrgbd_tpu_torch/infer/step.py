@@ -34,6 +34,7 @@ from neuralrgbd_tpu_torch.ops.camera import Camera
 from neuralrgbd_tpu_torch.ops.cuda.resample import predict_next_cuda
 from neuralrgbd_tpu_torch.ops.dpv import (confidence_map, depth_regression,
                                           resample_dpv)
+from neuralrgbd_tpu_torch.utils import profiler
 
 
 def predict_next(dpv: torch.Tensor, pose_next: torch.Tensor, K: torch.Tensor,
@@ -215,7 +216,9 @@ def make_infer_step(cfg: ModelConfig, kernels: bool = True,
                                          - cfg.ndepth])
         d_candi, d_candi_r = d_candis[dev]
         lanes = []
-        with step_numerics(tf32):
+        # with tracing on, the device's time at the step's start, at its
+        # module boundaries (``profiler.mark``) and at its end
+        with step_numerics(tf32), profiler.stamped(dev):
             for n, valid in enumerate(bv_valid):
                 out = model(batch["ref"][n], batch["srcs"][n],
                             batch["poses"][n], Camera(K=batch["K"][n]),
@@ -228,6 +231,7 @@ def make_infer_step(cfg: ModelConfig, kernels: bool = True,
                               *depth_and_confidence(cfg, out.dpv,
                                                     out.dpv_refined,
                                                     d_candi_r)))
+                profiler.mark(profiler.RNET)
             dpv, dpv_refined, depth, conf = (torch.stack(x)
                                              for x in zip(*lanes))
             bv_next = predict_next(dpv, batch["pose_next"], batch["K"],

@@ -64,6 +64,7 @@ from neuralrgbd_tpu_torch.ops.cuda.conv3d_pair import knet_fast_apply
 from neuralrgbd_tpu_torch.ops.cuda.sweep_fused import sweep_cost_volume_fused
 from neuralrgbd_tpu_torch.ops.sweep import (sweep_cost_volume,
                                             warp_to_ref_over_depths)
+from neuralrgbd_tpu_torch.utils import profiler
 
 
 class KVNetOutput(NamedTuple):
@@ -181,7 +182,9 @@ class KVNet(nn.Module):
         convs in bf16 with fp32 accumulation. As in JAX it applies only
         when ``kv_feature_dim`` is 64; any other width takes the plain
         K-Net. ``coarse_d`` overrides ``cfg.knet_coarse_d`` (the step's
-        ``coarse_knet``)."""
+        ``coarse_knet``). Inside a traced inference step
+        (``utils.profiler.stamped``) it stamps the device's time after the
+        D-Net, after the sweep and after the fusion."""
         cfg = self.cfg
         V, H, W, _ = src_frames.shape
 
@@ -197,6 +200,7 @@ class KVNet(nn.Module):
         # channels-last view of the planar features: the sweep kernel reads
         # them through strides, coalesced in this layout, without a copy
         sw = sw.permute(0, 2, 3, 1)                # (V+1, h, w, C)
+        profiler.mark(profiler.DNET)
 
         Rs, ts = src_poses[:, :3, :3], src_poses[:, :3, 3]
         keep = 3 if cfg.use_img_intensity else 0
@@ -208,6 +212,7 @@ class KVNet(nn.Module):
         if cfg.refine_costv:
             cost = self.d_net(cost[None])[0]
         bv_cur = F.log_softmax(-cost, dim=0)
+        profiler.mark(profiler.SWEEP)
 
         if cfg.refine_net == "DGF":
             def refine(dpv_log):
@@ -257,6 +262,8 @@ class KVNet(nn.Module):
             dpv = F.log_softmax(gain + bv_predict, dim=0)
         else:
             dpv = bv_cur
+        if bv_valid:
+            profiler.mark(profiler.KNET)
 
         if self.single_refine:
             dpv_refined = dpv_cur_refined = refine(dpv)

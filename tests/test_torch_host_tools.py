@@ -11,8 +11,8 @@ package's.
   binary, built by ``make`` as JAX's fixture builds it, skipped only if
   the build fails) and the port's ScanNet loader; the files the JAX
   writer writes, byte for byte; the decoder's failure path.
-- ``utils/profiler.py``: ``trace`` writes a Chrome trace holding an
-  ``annotate`` region; ``StepTimer``'s summary after its warm-up.
+- ``utils/profiler.py``: ``trace`` writes a Chrome trace holding a
+  ``span``'s region (the spans themselves: ``test_torch_spans.py``).
 - ``paired_knet`` / ``packed_fe``: JAX's step with each flag on (its TPU
   lane packings, run on the CPU) against the port's step with the same
   flag (the plain modules), within JAX's own flag-vs-native tolerance
@@ -47,7 +47,8 @@ from neuralrgbd_tpu_torch.infer.avi import (read_avi_mjpeg, results_to_avi,
 from neuralrgbd_tpu_torch.infer.rollout import make_rollout
 from neuralrgbd_tpu_torch.infer.step import make_infer_step
 from neuralrgbd_tpu_torch.models.kvnet import KVNet
-from neuralrgbd_tpu_torch.utils.profiler import StepTimer, annotate, trace
+from neuralrgbd_tpu_torch.utils import profiler
+from neuralrgbd_tpu_torch.utils.profiler import trace
 
 from tests.test_torch_rollout import IMG_HW, _frames, weights  # noqa: F401
 
@@ -212,26 +213,19 @@ def test_decode_sens_failure_paths(sens_binary, tmp_path, capsys):
 # --------------------------------------------------------------- profiler
 
 def test_trace_writes_a_chrome_trace_with_the_region(tmp_path):
-    with trace(str(tmp_path)) as prof:
-        with annotate("kvnet_region"):
-            torch.randn(64, 64) @ torch.randn(64, 64)
+    profiler.enable()
+    try:
+        with trace(str(tmp_path)) as prof:
+            with profiler.span("kvnet_region"):
+                torch.randn(64, 64) @ torch.randn(64, 64)
+    finally:
+        profiler.take()
     names = [p for p in os.listdir(tmp_path) if p.endswith(".pt.trace.json")]
     assert len(names) == 1
     with open(tmp_path / names[0]) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name") == "kvnet_region" for e in events)
     assert "kvnet_region" in [e.key for e in prof.key_averages()]
-
-
-def test_step_timer_skips_its_warmup():
-    timer = StepTimer(warmup=2)
-    assert timer.summary() == {}
-    for _ in range(5):
-        with timer:
-            pass
-    s = timer.summary()
-    assert s["n"] == 3 and set(s) == {"mean_ms", "p50_ms", "p90_ms", "n"}
-    assert 0 <= s["p50_ms"] <= s["p90_ms"]
 
 
 # ------------------------------------------------------- packing flags
