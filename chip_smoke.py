@@ -104,8 +104,8 @@ Phases, each printing its own lines:
    cached, coarse-D, ``fast_knet``, coarse-D with ``fast_knet``, bf16, and
    bf16 with its weights cast on every call, and all three flags) on
    phase 14's windows, in turns, with the card's name and power limit;
-   and the feature extractor alone (5 frames and 1, fp32 and bf16), ms
-   and kernel launches per call.
+   and the feature extractor alone (5 frames and 1; fp32 on the D-Net conv
+   kernel and on cuDNN, and bf16), ms and kernel launches per call.
 
 19. training at the operating point (``train.step.make_train_step``,
    fp32, TF32 off, Adam at lr 1e-4): 8 steps overfitting one window (the
@@ -245,12 +245,29 @@ Phases, each printing its own lines:
    21's eager runs: every file equal (``poses.npz`` NaN equal), B1 once
    and B2 and B3 once each a frame through the replays, the TIMING lines;
    0 host syncs per steady graphed device-arm frame. Alone it writes its
-   scene and checkpoint and runs phases 21's and 24's eager arms itself.
+   scene and checkpoint and runs phases 21's and 24's eager arms itself;
+29. the D-Net's fp32 conv kernel (``ops.cuda.conv2d_bn``) at the feature
+   extractor's shapes, on phase 5's first window (5, 3, 256, 384) and its
+   last frame alone (1, 3, 256, 384): every launch of one kernel-path call
+   (57 convs, 56 finalizes, 25 residual adds) held against its plain twin
+   run in fp64 on the same inputs (``CONV2D_TOL``), the chain going on from
+   the kernels' outputs; the launches counted; two calls and the held one
+   equal bit for bit; the gap to cuDNN's fp32 modules printed; and the
+   extractor's device ms on the kernel path (a CUDA graph of 5 calls),
+   call ms and host us a call, beside its twins on the card, cuDNN fp32
+   (the modules in the step's numerics) and the convs' bound.
+
+Every phase that counts launches also expects the D-Net conv kernel's,
+``FE_LAUNCHES`` (138) a kernel-path extractor call: one a lane-step of an
+fp32 inference step, one a frame featurized on the cached path, none in
+training or with a bf16 extractor.
 
 Then one ``{"kernels": [...]}`` line (the conv kernel's launches: phase
-10's, phase 17's, phase 22's and phase 27's fast path; the sweep's and the
-resample's add phases 19-28, phase 24's, 26's and 28's DP counted in the
-rank processes, phases 27's and 28's through the graphs' replays)
+10's, phase 17's, phase 22's and phase 27's fast path; the sweep's, the
+resample's and the D-Net conv kernel's: phase 5's and phases 19-28's,
+phase 24's, 26's and 28's DP counted in the rank processes, phases 27's
+and 28's through the graphs' replays; the D-Net conv kernel's row is
+phase 29's, at five frames, with one frame's under ``n1``)
 and, last, the ``{"ok": true, ...}`` line. Any failed check exits non-zero before those two lines. A kernel's
 ``ms`` in that line is its ``device_ms``. Every
 kernel's ``bound_ms`` is computed here from the shapes it was timed at:
@@ -279,6 +296,7 @@ import warnings
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from neuralrgbd_tpu_torch.cli import evaluate as cli_evaluate
 from neuralrgbd_tpu_torch.cli import test_kvnet_lba as cli_lba
@@ -300,11 +318,13 @@ from neuralrgbd_tpu_torch.infer.rollout import make_rollout
 from neuralrgbd_tpu_torch.infer.step import (make_frame_features,
                                              make_infer_step, predict_next)
 from neuralrgbd_tpu_torch.models import layers as layers_mod
+from neuralrgbd_tpu_torch.models.feature_extractor import FeatureExtractor
 from neuralrgbd_tpu_torch.models import refine_legacy as legacy
 from neuralrgbd_tpu_torch.models.kvnet import KVNet
 from neuralrgbd_tpu_torch.models.rnet import RNet
 from neuralrgbd_tpu_torch.ops.camera import Camera, camera_from_K
 from neuralrgbd_tpu_torch.ops.cuda import build
+from neuralrgbd_tpu_torch.ops.cuda import conv2d_bn as kconv2d
 from neuralrgbd_tpu_torch.ops.cuda import conv3d as kconv
 from neuralrgbd_tpu_torch.ops.cuda import resample as kresample
 from neuralrgbd_tpu_torch.ops.cuda import conv3d_pair as kpair
@@ -336,7 +356,8 @@ CFG = ModelConfig()          # feature_dim 64, D=64, t_win_r=2, fp32, exact
 IMG_HW = (256, 384)
 T = 8
 SEED = 0
-KERNELS = {"sweep_fused": ksweep, "resample": kresample, "conv3d": kconv}
+KERNELS = {"sweep_fused": ksweep, "resample": kresample, "conv3d": kconv,
+           "conv2d_bn": kconv2d}
 # Kernel vs plain twin: the twins go through F.grid_sample, which maps pixel
 # coords to [-1, 1] and back; at widths up to 384 px that moves a coordinate
 # by ~1e-4 px, i.e. ~1e-4 in O(1) sampled values. The prediction kernel's
@@ -374,6 +395,17 @@ FAST_DEPTH_MEAN = 0.05
 # pixel near a tie can move far; the mean |depth difference| in m holds.
 BF16_ROLLOUT_MEAN = 1e-2
 BF16 = dataclasses.replace(CFG, dtype="bfloat16")
+# The D-Net's fp32 conv kernel (ops.cuda.conv2d_bn) against its plain twins
+# run in fp64 on the same inputs, at the extractor's own shapes (phase 29):
+# each conv within 1e-4 of the sum of its |terms| (fp32 sums of up to 2880
+# products, in another order); each tile's mean and M2 within 1e-4 of the
+# tile's mean |y| and sum of y^2; the finalize's mean within 1e-4 of |mean|
+# + std and its scale within rtol 1e-4, against the batch's statistics of
+# the kernel's output; the residual add within 1e-5 of the magnitudes it
+# sums (|raw - mean| * |scale| + |beta| of each side). A wrong tap, a BatchNorm applied at the wrong place or a pad
+# of a(0) instead of 0 misses by 1e-2 and more.
+CONV2D_TOL = {"conv": 1e-4, "stats": 1e-4, "finalize": 1e-4,
+              "residual": 1e-5}
 KNET_LAYER = (CFG.ndepth, IMG_HW[0] // 4, IMG_HW[1] // 4, CFG.kv_feature_dim)
 # the coarse-D K-Net's layer (knet_coarse_d = 2): D/2 planes
 KNET_LAYER_D32 = (CFG.ndepth // 2, *KNET_LAYER[1:])
@@ -450,6 +482,31 @@ GRAPH_TRAIN_CASES = (("fp32, 1 lane", CFG, 1), ("fp32, 2 lanes", CFG, 2),
 DP_RUNS: dict = {}        # phase 24's certificate, which phase 28 reads
 
 failures: list[str] = []
+
+
+def fe_launches(fe: FeatureExtractor) -> int:
+    """The conv kernel's launches in one kernel-path call of the feature
+    extractor ``fe`` (``FeatureExtractor.fused``): a conv each, a finalize
+    each conv but the last, a residual add each block."""
+    blocks = [b for layer in (fe.layer1, fe.layer2, fe.layer3, fe.layer4)
+              for b in layer]
+    convs = 3 + sum(2 + (b.downsample is not None) for b in blocks) + 2
+    return convs + (convs - 1) + len(blocks)
+
+
+FE_LAUNCHES = fe_launches(FeatureExtractor(CFG.feature_dim, device="meta"))
+
+
+def expected_launches(sweeps: int, resamples: int, conv3d: int = 0,
+                      extractor: int | None = None) -> dict:
+    """Each kernel's launches in a run of ``sweeps`` sweeps, ``resamples``
+    predictions, ``conv3d`` K-Net convs and ``extractor`` kernel-path
+    feature-extractor calls. ``extractor`` is ``sweeps`` by default: the
+    fp32 inference step featurizes and sweeps once a lane (training runs
+    neither kernel; a bf16 extractor and the cached path's calls differ)."""
+    return {"sweep_fused": sweeps, "resample": resamples, "conv3d": conv3d,
+            "conv2d_bn": FE_LAUNCHES * (sweeps if extractor is None
+                                        else extractor)}
 
 
 def check(ok: bool, what: str) -> None:
@@ -712,7 +769,7 @@ def phase_rollout(model, device) -> tuple:
           flush=True)
     frames = frames_on(device, T)
     launches, depth, conf = check_rollout(
-        model, frames, {"sweep_fused": T, "resample": T, "conv3d": 0})
+        model, frames, expected_launches(T, T))
     two = {k: v[0] for k, v in frames_on(device, 1, n_lanes=2).items()}
     before = {name: mod.launches for name, mod in KERNELS.items()}
     make_infer_step(CFG)(model, two, bv0_on(device).expand(2, -1, -1, -1),
@@ -720,9 +777,10 @@ def phase_rollout(model, device) -> tuple:
     torch.cuda.synchronize()
     counts = {name: mod.launches - before[name]
               for name, mod in KERNELS.items()}
-    check(counts == {"sweep_fused": 2, "resample": 1, "conv3d": 0},
-          f"one step of 2 lanes: launches {counts} (expected 2 sweeps and "
-          f"1 resample for both lanes)")
+    check(counts == expected_launches(2, 1),
+          f"one step of 2 lanes: launches {counts} (expected 2 sweeps, "
+          f"1 resample for both lanes and the extractor's "
+          f"{FE_LAUNCHES} conv2d_bn launches a lane)")
     return launches, frames, depth, conf
 
 
@@ -1022,8 +1080,7 @@ def phase_fast(model, frames, depth) -> dict:
     print(f"phase 10: fast_knet rollout, T={T} at {IMG_HW[1]}x{IMG_HW[0]}",
           flush=True)
     launches, fdepth, _ = check_rollout(
-        model, frames,
-        {"sweep_fused": T, "resample": T, "conv3d": 10 * (T - 1)},
+        model, frames, expected_launches(T, T, 10 * (T - 1)),
         fast_knet=True)
     pdepth, _, _ = make_rollout(CFG, kernels=False, fast_knet=True)(
         model, frames, bv0_on(frames["ref"].device), [False])
@@ -1452,10 +1509,10 @@ def phase_loop(model, device, tmp: str) -> dict:
     print("  " + "\n  ".join(ln for ln in out.splitlines()
                               if not ln.startswith("Finished frame")),
           flush=True)
-    check(launches == {"sweep_fused": T_LOOP, "resample": T_LOOP,
-                       "conv3d": 0},
-          f"launches in the CLI's run: {launches} (expected {T_LOOP} sweeps "
-          f"and {T_LOOP} resamples, no conv)")
+    check(launches == expected_launches(T_LOOP, T_LOOP),
+          f"launches in the CLI's run: {launches} (expected {T_LOOP} sweeps, "
+          f"{T_LOOP} resamples, no K-Net conv and {FE_LAUNCHES} conv2d_bn a "
+          f"frame)")
     out_dir = os.path.join(tmp, "cli", "loop_0")
     check_contract(out_dir)
 
@@ -1577,7 +1634,8 @@ def cli_flag_run(model, loop_info: dict, tmp: str, name: str, flags: list,
     """``cli.test_kvnet`` with ``flags`` on phase 14's scene (its checkpoint,
     or ``ckpt``): its launches, the export contract, and its maps against
     ``make_rollout(cfg, **rollout_kw)`` on the same windows. Returns the
-    launches."""
+    launches. With ``cache_features`` each of the scene's frames is
+    featurized once: the windows' frames, 2 t_win_r more than windows."""
     for mod in KERNELS.values():
         mod.launches = 0
     t0 = time.perf_counter()
@@ -1589,11 +1647,12 @@ def cli_flag_run(model, loop_info: dict, tmp: str, name: str, flags: list,
     print("  " + "\n  ".join(ln for ln in out.splitlines()
                               if not ln.startswith("Finished frame")),
           flush=True)
-    check(launches == {"sweep_fused": T_LOOP, "resample": T_LOOP,
-                       "conv3d": 0},
+    fe_calls = (T_LOOP + 2 * CFG.t_win_r
+                if rollout_kw.get("cache_features") else T_LOOP)
+    want = expected_launches(T_LOOP, T_LOOP, extractor=fe_calls)
+    check(launches == want,
           f"cli.test_kvnet {' '.join(flags)}: launches {launches} "
-          f"(expected {T_LOOP} sweeps and {T_LOOP} resamples), whole run "
-          f"{cli_s:.2f} s")
+          f"(expected {want}), whole run {cli_s:.2f} s")
     out_dir = os.path.join(tmp, name, "loop_0")
     check_contract(out_dir, depth_in_range=cfg.refine_net != "DGF")
     windows = loop_info["windows"]
@@ -1626,7 +1685,8 @@ def phase_cached(model, device, loop_info: dict, tmp: str) -> None:
     rollout_mod.make_infer_step = counting
     try:
         _, cdepth, cconf = check_rollout(
-            model, frames, {"sweep_fused": T, "resample": T, "conv3d": 0},
+            model, frames,
+            expected_launches(T, T, extractor=T + 2 * CFG.t_win_r),
             cache_features=True)
     finally:
         rollout_mod.make_infer_step = make
@@ -1684,8 +1744,8 @@ def phase_coarse(model, device, frames, depth, loop_info: dict,
     try:
         for name, fast in (("exact", False), ("fast_knet", True)):
             launches, cdepth, _ = check_rollout(
-                model, frames, {"sweep_fused": T, "resample": T,
-                                "conv3d": 10 * (T - 1) if fast else 0},
+                model, frames,
+                expected_launches(T, T, 10 * (T - 1) if fast else 0),
                 coarse_knet=2, fast_knet=fast)
             runs[name] = launches, cdepth
     finally:
@@ -1736,9 +1796,8 @@ def phase_bf16(model, device, frames, depth, loop_info: dict) -> None:
           f"{IMG_HW[1]}x{IMG_HW[0]}", flush=True)
     model16 = KVNet(BF16, device=device, seed=SEED, single_refine=True)
     model16.load_state_dict(model.state_dict())
-    _, bdepth, _ = check_rollout(
-        model16, frames, {"sweep_fused": T, "resample": T, "conv3d": 0},
-        cfg=BF16)
+    _, bdepth, _ = check_rollout(     # a bf16 extractor runs its modules
+        model16, frames, expected_launches(T, T, extractor=0), cfg=BF16)
     pdepth, _, _ = make_rollout(BF16, kernels=False)(
         model16, frames, bv0_on(device), [False])
     torch.cuda.synchronize()
@@ -1802,31 +1861,40 @@ def time_paths(model, model16, loop_info: dict) -> None:
     time_features(model, model16, frames)
 
 
+def extractor_input(frames) -> torch.Tensor:
+    """The first window's 5 frames, (5, 3, H, W), as the step hands them
+    to the feature extractor."""
+    return torch.cat([frames["srcs"][0, 0], frames["ref"][0, :1]]).permute(
+        0, 3, 1, 2).contiguous()
+
+
 def time_features(model, model16, frames) -> None:
     """The feature extractor alone, ms per call (CUDA events around 5
     calls, ``call_ms``): the window's 5 frames in one batch (the exact
-    path's call) and one frame (the cached path's call a step), fp32 and
-    bf16, in the step's numerics; and the 5-frame fp32 batch with cuDNN's
-    default algorithm choice. Each twice, the order reversed the second
-    time."""
-    x5 = torch.cat([frames["srcs"][0, 0], frames["ref"][0, :1]]).permute(
-        0, 3, 1, 2).contiguous()
+    path's call) and one frame (the cached path's call a step), fp32 on
+    the conv kernel and on cuDNN, and bf16 (its modules), in the step's
+    numerics; and the 5-frame fp32 batch on cuDNN with its default
+    algorithm choice. Each twice, the order reversed the second time."""
+    x5 = extractor_input(frames)
+    numerics = step_mod.step_numerics
     cases = {
-        "fp32, 5 frames": (model, x5, step_mod.step_numerics),
-        "fp32, 1 frame": (model, x5[-1:], step_mod.step_numerics),
-        "bf16, 5 frames": (model16, x5, step_mod.step_numerics),
-        "bf16, 1 frame": (model16, x5[-1:], step_mod.step_numerics),
+        "fp32, 5 frames, conv kernel": (model, x5, numerics, True),
+        "fp32, 5 frames, cuDNN": (model, x5, numerics, False),
+        "fp32, 1 frame, conv kernel": (model, x5[-1:], numerics, True),
+        "fp32, 1 frame, cuDNN": (model, x5[-1:], numerics, False),
+        "bf16, 5 frames": (model16, x5, numerics, True),
+        "bf16, 1 frame": (model16, x5[-1:], numerics, True),
         "fp32, 5 frames, cuDNN's default choice": (model, x5,
-                                                   tf32_numerics_only),
+                                                   tf32_numerics_only, False),
     }
     ms = {name: [] for name in cases}
     launches = {}
     for name in [*cases, *reversed(cases)]:
-        m, x, numerics = cases[name]
+        m, x, numerics, kernels = cases[name]
         fe = m.feature_extractor["feature_extraction"]
         with torch.no_grad(), numerics(False):
-            ms[name].append(call_ms(lambda: fe(x), reps=5))
-            launches[name] = kernel_launches(lambda: fe(x))
+            ms[name].append(call_ms(lambda: fe(x, kernels), reps=5))
+            launches[name] = kernel_launches(lambda: fe(x, kernels))
     print(f"  {CARD[0]}: the feature extractor alone at "
           f"{IMG_HW[1]}x{IMG_HW[0]}, ms per call (kernel launches per "
           f"call): " + "; ".join(
@@ -1896,8 +1964,7 @@ def phase_train(device, loop_info: dict, tmp: str) -> dict:
     losses = [step(state, one, bv0_on(device), [False]).loss
               for _ in range(TRAIN_STEPS)]
     launches = read_launches()
-    check(launches == {"sweep_fused": 0, "resample": TRAIN_STEPS,
-                       "conv3d": 0},
+    check(launches == expected_launches(0, TRAIN_STEPS),
           f"launches in {TRAIN_STEPS} train steps: {launches} (the carry on "
           f"the resample kernel once a step; the forward on the plain ops)")
     vals = torch.stack(losses).cpu()
@@ -2351,10 +2418,10 @@ def phase_kitti(device, tmp: str, errs: dict) -> dict:
     with StepProbe(loop_mod) as probe:
         quiet(cli_test_kvnet.main, argv)
     launches = read_launches()
-    check(launches == {"sweep_fused": T_KITTI, "resample": T_KITTI,
-                       "conv3d": 0},
+    check(launches == expected_launches(T_KITTI, T_KITTI),
           f"launches in the KITTI loop: {launches} (expected {T_KITTI} "
-          f"sweeps and {T_KITTI} resamples at {W // 4} wide)")
+          f"sweeps and {T_KITTI} resamples at {W // 4} wide, the extractor "
+          f"at {W}x{H})")
     out_dir = os.path.join(tmp, "kitti_out", "kitti_0")
     files = sorted(os.listdir(out_dir))
     check(len(files) == 3 * T_KITTI + 1 and read_pgm(os.path.join(
@@ -2560,10 +2627,12 @@ def phase_lba(device, loop_info: dict, tmp: str, errs: dict) -> dict:
               f"{poses['extMs'].shape}: {int(finite.sum())} finite, all "
               f"valid ones; max depth {d_max}")
         b2 = launches["resample"] - calls["B3"]
-        check(launches["sweep_fused"] == n and b2 == n and calls["B3"] == n,
+        check(launches["sweep_fused"] == n and b2 == n and calls["B3"] == n
+              and launches["conv2d_bn"] == FE_LAUNCHES * n,
               f"{arm} arm launches: B1 (sweep) {launches['sweep_fused']}, B2 "
               f"(predict_next) {b2}, B3 (resample_dpv_cuda) {calls['B3']} "
-              f"for {n} frames (1 each a frame)")
+              f"for {n} frames (1 each a frame); the extractor's conv2d_bn "
+              f"{launches['conv2d_bn']} ({FE_LAUNCHES} a frame)")
         print(f"  {CARD[0]}: {arm} arm {timing[0] if timing else 'no TIMING'}",
               flush=True)
         loop_info.setdefault("lba", {"cap": cap})[arm] = (n, out_dir, timing)
@@ -2648,8 +2717,7 @@ def phase_heads(model, device, loop_info: dict, tmp: str) -> dict:
         print(f"  {name}:", flush=True)
         torch.cuda.reset_peak_memory_stats()
         got, depth, conf = check_rollout(
-            head, frames, {"sweep_fused": T, "resample": T, "conv3d": 0},
-            cfg=cfg)
+            head, frames, expected_launches(T, T), cfg=cfg)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         for k in KERNELS:
             launches[k] += got[k]
@@ -2694,8 +2762,7 @@ def phase_heads(model, device, loop_info: dict, tmp: str) -> dict:
     cfg = head_cfg("refine_costv")
     got, fdepth, _ = check_rollout(
         models["refine_costv"], frames,
-        {"sweep_fused": T, "resample": T, "conv3d": 10 * (T - 1)}, cfg=cfg,
-        fast_knet=True)
+        expected_launches(T, T, 10 * (T - 1)), cfg=cfg, fast_knet=True)
     for k in KERNELS:
         launches[k] += got[k]
     dev = float((fdepth - exact["refine_costv"]).abs().mean())
@@ -2820,9 +2887,8 @@ def train_heads(device, loop_info: dict, tmp: str) -> dict:
             launches[k] += n1[k] + runs[1][4][k]
         vals = l1.cpu()
         check(bool(torch.isfinite(vals).all()) and float(vals[-1])
-              < float(vals[0]) and n1 == {"sweep_fused": 0,
-                                          "resample": TRAIN_HEAD_STEPS,
-                                          "conv3d": 0},
+              < float(vals[0])
+              and n1 == expected_launches(0, TRAIN_HEAD_STEPS),
               f"{name} training, one window with a valid carry: losses "
               f"{' '.join(f'{float(v):.4f}' for v in vals)} (finite, "
               f"falling), launches {n1}")
@@ -2995,8 +3061,7 @@ def phase_lockstep(model, device, loop_info: dict, tmp: str) -> dict:
           f"one step call per lockstep frame ({len(probe.calls)} for "
           f"{frames}), each with N sweep launches for its N active lanes "
           f"and 1 prediction launch: lanes per frame {lanes}")
-    check(launches == {"sweep_fused": sum(counts), "resample": frames,
-                       "conv3d": 0},
+    check(launches == expected_launches(sum(counts), frames),
           f"launches in the lockstep run: {launches}")
 
     # each lane alone through run_trajectory: the same frames, bit for bit
@@ -3052,7 +3117,8 @@ def phase_lockstep(model, device, loop_info: dict, tmp: str) -> dict:
           and all(same_files(c, d, os.listdir(d))
                   for c, d in zip(cli_dirs, dirs[:2]))
           and cli_launches["resample"] == frames
-          and cli_launches["sweep_fused"] == sum(counts[:2]),
+          and cli_launches["sweep_fused"] == sum(counts[:2])
+          and cli_launches["conv2d_bn"] == FE_LAUNCHES * sum(counts[:2]),
           f"cli.test_kvnet --multi_device --traj_idx 0 1: {printed}, each "
           f"lane's files those of run_trajectories_parallel, launches "
           f"{cli_launches}")
@@ -3195,9 +3261,8 @@ def phase_campaign(device, tmp: str) -> dict:
           f"{[s for s, _ in evals]} finite: abs_rel "
           f"{[round(r['abs_rel'], 4) for _, r in evals]}, delta1 "
           f"{[round(r['delta1'], 4) for _, r in evals]}")
-    check(launches == {"sweep_fused": len(evals) * n_frames,
-                       "resample": CAMP_STEPS + len(evals) * n_frames,
-                       "conv3d": 0},
+    check(launches == expected_launches(len(evals) * n_frames,
+                                        CAMP_STEPS + len(evals) * n_frames),
           f"launches {launches}: one sweep and one resample per holdout "
           f"frame ({len(evals)} evaluations of {n_frames} frames), one "
           f"resample per train step (the carry)")
@@ -3262,10 +3327,15 @@ def phase_campaign(device, tmp: str) -> dict:
           f"{at_best['abs_rel']:.6f}, delta1 {by_arm['exact']['delta1']} vs "
           f"{at_best['delta1']:.6f}")
     n_arms = len(eval_deviations.ARMS)
-    check(gate_launches == {"sweep_fused": n_arms * n_frames,
-                            "resample": n_arms * n_frames, "conv3d": 0},
-          f"the gate's launches {gate_launches}: one sweep and one resample "
-          f"per frame of each of its {n_arms} arms")
+    # the extractor on the kernel path: once a frame in the exact and
+    # coarse arms, once a holdout frame (2 t_win_r more than its windows)
+    # in the cached and deploy arms, never in the bf16 arm (its modules)
+    cached = n_frames + 2 * CFG.t_win_r * len(holdouts)
+    want = expected_launches(n_arms * n_frames, n_arms * n_frames,
+                             extractor=2 * n_frames + 2 * cached)
+    check(gate_launches == want,
+          f"the gate's launches {gate_launches} (expected {want}): one "
+          f"sweep and one resample per frame of each of its {n_arms} arms")
     return {k: launches[k] + gate_launches[k] for k in KERNELS}
 
 
@@ -3444,8 +3514,10 @@ def phase_graph(model, device, tmp: str, loop_info=None) -> dict:
         graph_peak = peak_gib()
         counted = read_launches()
         caps = graph_mod.captures[start:]
-        want = {"sweep_fused": T, "resample": T,
-                "conv3d": 10 * (T - 1) if kw.get("fast_knet") else 0}
+        want = expected_launches(
+            T, T, 10 * (T - 1) if kw.get("fast_knet") else 0,
+            extractor=T + 2 * CFG.t_win_r if kw.get("cache_features")
+            else None)
         for k in KERNELS:
             launches[k] += counted[k]
         check(counted == want and all(
@@ -3468,8 +3540,7 @@ def phase_graph(model, device, tmp: str, loop_info=None) -> dict:
         counted = read_launches()
         outs[name] = os.path.join(tmp, f"cli_{name}", "loop_0")
         captured = [ln for ln in out.splitlines() if "graph(s)" in ln]
-        check(counted == {"sweep_fused": T_LOOP, "resample": T_LOOP,
-                          "conv3d": 0},
+        check(counted == expected_launches(T_LOOP, T_LOOP),
               f"cli.test_kvnet {' '.join(extra) or '(chunk_t 32)'}: "
               f"launches {counted} (expected {T_LOOP} sweeps and "
               f"{T_LOOP} resamples); {captured or 'no graph captured'}")
@@ -3603,7 +3674,7 @@ def graph_train(device) -> dict:
                    for a, b in zip(x, y))
         same_state = all(torch.equal(a, b) for x, y in zip(
             graphed["state"], eager["state"]) for a, b in zip(x, y))
-        want = {"sweep_fused": 0, "resample": 4, "conv3d": 0}
+        want = expected_launches(0, 4)
         caps = graphed["captures"]
         keys = len({(tuple(lv), tuple(bv)) for lv, bv in train_schedule(n)})
         check(same and same_state and graphed["grads_kept"]
@@ -3706,7 +3777,7 @@ def graph_campaign(device, tmp: str) -> dict:
     launches = read_launches()
     frames = len(camp.evals) * sum(len(eval_refs(h, CFG.t_win_r, 2))
                                    for h in camp.holdouts)
-    want = {"sweep_fused": frames, "resample": 4 + frames, "conv3d": 0}
+    want = expected_launches(frames, 4 + frames)
     check(summary["graph"] is True and camp.state.step == 4
           and all(math.isfinite(m["abs_rel"]) for _, m in camp.evals)
           and launches == want,
@@ -3779,7 +3850,7 @@ def graph_lba(device, loop_info: dict, tmp: str) -> dict:
             launches[k] += counted[k]
         out_dir = os.path.join(tmp, f"lba_{arm}_graph", "lba")
         timing = [x for x in text.splitlines() if x.startswith("TIMING")]
-        want = {"sweep_fused": n, "resample": 2 * n, "conv3d": 0}
+        want = expected_launches(n, 2 * n)
         check(n == n_eager and lba_files_equal(out_dir, eager_dir)
               and counted == want,
               f"cli.test_kvnet_lba --pose_graph {arm} --graph: {n} frames; "
@@ -3839,6 +3910,185 @@ def phase_compiled(device, tmp: str, loop_info=None) -> dict:
     return launches
 
 
+def _f64(a: kconv2d.Act) -> torch.Tensor:
+    """``a``'s value in fp64: its pending BatchNorm and ReLU applied."""
+    return kconv2d.apply_pending(kconv2d.Act(
+        a.raw.double(), None if a.bn is None else a.bn.double(), a.relu))
+
+
+def _f64_terms(a: kconv2d.Act) -> torch.Tensor:
+    """The magnitudes ``a``'s value is summed from, in fp64:
+    |raw - mean| * |scale| + |beta| where a BatchNorm is pending."""
+    if a.bn is None:
+        return a.raw.double().abs()
+    mean, scale, beta = (v.double().view(1, -1, 1, 1) for v in a.bn)
+    return (a.raw.double() - mean).abs() * scale.abs() + beta.abs()
+
+
+class Conv2dAudit:
+    """Inside the block, each ``conv_bn`` and ``residual`` of the feature
+    extractor's kernel path launches the kernels as the path does, and
+    holds each launch against its plain twin run in fp64 on the same
+    inputs (``CONV2D_TOL``); the chain goes on from the kernels' outputs.
+    ``worst`` holds each entry's largest |error| over its allowance."""
+
+    def __init__(self):
+        self.worst = dict.fromkeys(CONV2D_TOL, 0.0)
+        self.calls = {"conv": 0, "finalize": 0, "residual": 0}
+        self.max_abs, self.flops, self.nbytes = 0.0, 0.0, 0.0
+
+    def __enter__(self):
+        self.saved = kconv2d.conv_bn, kconv2d.residual
+        kconv2d.conv_bn, kconv2d.residual = self.conv_bn, self.residual
+        return self
+
+    def __exit__(self, *exc):
+        kconv2d.conv_bn, kconv2d.residual = self.saved
+
+    def hold(self, entry: str, got, want, allowed) -> None:
+        ratio = (got - want).abs() / allowed.clamp_min(1e-30)
+        self.worst[entry] = max(self.worst[entry], float(ratio.max()))
+
+    def conv_bn(self, a, conv, bn, relu=False):
+        y, part = kconv2d.conv_kernel(a, conv, bn is not None)
+        self.calls["conv"] += 1
+        B, N, Ho, Wo = y.shape
+        M = B * Ho * Wo
+        bm = kconv2d.TILES[kconv2d.config_for(M, N)][0]
+        x, w = _f64(a), conv.weight.double()
+        geo = dict(stride=conv.stride, padding=conv.padding,
+                   dilation=conv.dilation)
+        want, yd = F.conv2d(x, w, **geo), y.double()
+        self.hold("conv", yd, want,
+                  CONV2D_TOL["conv"] * F.conv2d(x.abs(), w.abs(), **geo))
+        self.max_abs = max(self.max_abs, max_err(yd, want))
+        self.flops += 2.0 * M * N * w[0].numel()
+        self.nbytes += 4.0 * (a.raw.numel() + y.numel() + w.numel())
+        if bn is None:
+            return kconv2d.Act(y)
+        tiles = kconv2d.tile_stats_plain(yd, bm)
+        cnt = torch.clamp(M - bm * torch.arange(
+            tiles.shape[1], device=y.device), max=bm)[:, None]
+        tol = CONV2D_TOL["stats"]
+        self.hold("stats", part[0, :, :N], tiles[0],
+                  tol * kconv2d.tile_stats_plain(yd.abs(), bm)[0])
+        self.hold("stats", part[1, :, :N], tiles[1],
+                  tol * (tiles[1] + cnt * tiles[0] ** 2))
+        got = kconv2d.finalize_kernel(part, M, bm, bn)
+        self.calls["finalize"] += 1
+        mean = yd.mean((0, 2, 3))
+        var = yd.var((0, 2, 3), unbiased=False)
+        tol = CONV2D_TOL["finalize"]
+        self.hold("finalize", got[0], mean, tol * (mean.abs() + var.sqrt()))
+        scale = bn.weight.double() / torch.sqrt(var + bn.eps)
+        self.hold("finalize", got[1], scale, tol * scale.abs())
+        self.hold("finalize", got[2], bn.bias.double(),
+                  torch.zeros_like(scale))
+        return kconv2d.Act(y, got, relu)
+
+    def residual(self, r, skip):
+        got = kconv2d.residual_kernel(r.raw, r.bn, skip)
+        self.calls["residual"] += 1
+        r = kconv2d.Act(r.raw, r.bn)
+        self.hold("residual", got.double(), _f64(r) + _f64(skip),
+                  CONV2D_TOL["residual"] * (_f64_terms(r)
+                                            + _f64_terms(skip)))
+        return got
+
+
+@contextlib.contextmanager
+def conv2d_twins():
+    """The extractor's kernel path on the kernels' plain twins (fp32, on
+    any device): what the row's ``plain_ms`` times."""
+    names = ("conv_kernel", "finalize_kernel", "residual_kernel")
+    saved = [getattr(kconv2d, n) for n in names]
+
+    def conv(a, conv, stats, config=None):
+        return kconv2d.conv_plain(a, conv, stats, kconv2d.TILES[config][0])
+
+    for n, fn in zip(names, (conv, kconv2d.finalize_plain,
+                             kconv2d.residual_plain)):
+        setattr(kconv2d, n, fn)
+    try:
+        yield
+    finally:
+        for n, fn in zip(names, saved):
+            setattr(kconv2d, n, fn)
+
+
+def phase_conv2d(model, device, frames, errs) -> dict:
+    """Phase 29: the D-Net's conv kernel at the main path's shapes."""
+    H, W = IMG_HW
+    print(f"phase 29: the D-Net's fp32 conv kernel (conv2d_bn) against its "
+          f"twins in fp64, at the feature extractor's shapes, (5, 3, {H}, "
+          f"{W}) and (1, 3, {H}, {W})", flush=True)
+    fe = model.feature_extractor["feature_extraction"]
+    x5 = extractor_input(frames)
+    row = {}
+    for x in (x5, x5[-1:]):
+        B = x.shape[0]
+        reset_launches()
+        with torch.no_grad(), step_mod.step_numerics(False):
+            with Conv2dAudit() as audit:
+                held = fe(x, kernels=True)
+            got = fe(x, kernels=True)
+            again = fe(x, kernels=True)
+            cudnn = fe(x, kernels=False)
+        n = read_launches()["conv2d_bn"]
+        errs.append(audit.max_abs)
+        calls = audit.calls
+        check(sum(calls.values()) == FE_LAUNCHES and n == 3 * FE_LAUNCHES,
+              f"B={B}: {calls['conv']} convs, {calls['finalize']} "
+              f"finalizes and {calls['residual']} residual adds held, "
+              f"{n} launches in three kernel-path calls (expected "
+              f"{FE_LAUNCHES} a call)")
+        check(all(v <= 1.0 for v in audit.worst.values()),
+              f"B={B}: each launch within its allowance against the fp64 "
+              f"twin (largest |error| / allowance per entry: "
+              + ", ".join(f"{k} {v:.3g}" for k, v in audit.worst.items())
+              + f"; conv max |error| {audit.max_abs:.3e})")
+        check(all(torch.equal(a, b) and torch.equal(a, c)
+                  for a, b, c in zip(got, again, held)),
+              f"B={B}: two kernel-path calls and the held one equal bit "
+              f"for bit (layer1, feat)")
+        print(f"  B={B}: kernel path vs cuDNN fp32, max |difference|: "
+              f"layer1 {max_err(got[0], cudnn[0]):.3e}, feat "
+              f"{max_err(got[1], cudnn[1]):.3e}; the convs {audit.flops:.4g} "
+              f"FLOP", flush=True)
+        def kern():
+            return fe(x, kernels=True)
+
+        def plain():
+            with conv2d_twins():
+                return fe(x, kernels=True)
+
+        def lib():
+            return fe(x, kernels=False)
+
+        with torch.no_grad(), step_mod.step_numerics(False):
+            k1, p1, l1 = call_ms(kern, 5), call_ms(plain, 3), call_ms(lib, 3)
+            dev, host = device_ms(kern, calls=5, replays=3), host_us(kern, 5)
+            k2, p2, l2 = call_ms(kern, 5), call_ms(plain, 3), call_ms(lib, 3)
+        b_ms, by = bound(audit.nbytes, audit.flops, "fp32")
+        print(f"  {CARD[0]}: the extractor at B={B} on the conv kernel: "
+              f"device {dev:.3f} ms ({FE_LAUNCHES} kernel launches and the "
+              f"pyramid's modules), call {k1:.3f} / {k2:.3f} ms, host "
+              f"{host:.1f} us a call; its twins on the card {p1:.3f} / "
+              f"{p2:.3f} ms; cuDNN fp32 (the modules, the step's numerics) "
+              f"{l1:.3f} / {l2:.3f} ms; the convs' bound {b_ms:.3f} ms "
+              f"({by}), {audit.flops / dev * 1e-9:.1f} TFLOP/s", flush=True)
+        if B == 5:
+            row = {"ms": dev, "device_ms": dev,
+                   "call_ms": statistics.mean((k1, k2)), "host_us": host,
+                   "plain_ms": statistics.mean((p1, p2)), "bound_ms": b_ms,
+                   "bound_by": by, "library_ms": statistics.mean((l1, l2))}
+        else:
+            row["n1"] = {"device_ms": dev, "call_ms": statistics.mean(
+                (k1, k2)), "library_ms": statistics.mean((l1, l2)),
+                "bound_ms": b_ms}
+    return row
+
+
 def main() -> int:
     t_start = time.perf_counter()
     device = phase_device()
@@ -3877,6 +4127,8 @@ def main() -> int:
                      phase_compiled(device, tmp, loop_info)):
             for name, n in path.items():
                 launches[name] += n
+    timing["kernels"]["conv2d_bn"] = phase_conv2d(model, device, frames,
+                                                  errs["conv2d_bn"])
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of command "
           f"time from phase 1 on", flush=True)
     if failures:

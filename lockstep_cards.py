@@ -27,8 +27,9 @@ difference is a fault, not a tolerance. Phases:
    mesh it prints (JAX's rule: one lane a card on 4 cards), each
    replica's parameters on its card, each step call on its lanes' card,
    and per card the sweep (B1) launched once per active lane-frame and the
-   prediction (B2) once per lockstep frame with an active lane; each
-   lane's files equal its own run's;
+   prediction (B2) once per lockstep frame with an active lane, and the
+   D-Net's conv kernel ``chip_smoke.FE_LAUNCHES`` times an active
+   lane-frame; each lane's files equal its own run's;
 3. ``run_trajectories_parallel(mesh=None)`` at N=8 (two lanes a card on
    4 cards, JAX's contiguous blocks; lengths 24, 20, 16, 22, 18, 24, 14
    and 20) and N=6 (the first six: 3 cards by JAX's rule), held as in 2;
@@ -81,6 +82,7 @@ from neuralrgbd_tpu_torch.infer import loop as loop_mod
 from neuralrgbd_tpu_torch.infer.step import make_infer_step
 from neuralrgbd_tpu_torch.models.kvnet import KVNet
 from neuralrgbd_tpu_torch.ops.cuda import build
+from neuralrgbd_tpu_torch.ops.cuda import conv2d_bn as kconv2d
 from neuralrgbd_tpu_torch.ops.cuda import conv3d as kconv
 from neuralrgbd_tpu_torch.ops.cuda import resample as kresample
 from neuralrgbd_tpu_torch.ops.cuda import sweep_fused as ksweep
@@ -127,6 +129,29 @@ def phase_cards() -> int:
     return n
 
 
+def conv2d_case(dev) -> tuple:
+    """The D-Net's dilated 128 -> 128 conv (layer4's) at five frames of the
+    operating point, (5, 128, 64, 96), on ``dev``: its input with a pending
+    BatchNorm and ReLU, the conv's module and BatchNorm, and a skip of the
+    output's shape."""
+    g = torch.Generator().manual_seed(SEED)
+    C, shape = 128, (5, 128, IMG_HW[0] // 4, IMG_HW[1] // 4)
+    conv = torch.nn.Conv2d(C, C, 3, padding=2, dilation=2, bias=False)
+    bn = torch.nn.BatchNorm2d(C)
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=g)
+                          * (2.0 / (9 * C)) ** 0.5)
+        bn.weight.copy_(0.5 + torch.rand(C, generator=g))
+        bn.bias.copy_(torch.rand(C, generator=g) - 0.5)
+    pending = torch.stack([torch.randn(C, generator=g),
+                           0.5 + torch.rand(C, generator=g),
+                           torch.randn(C, generator=g)])
+    a = kconv2d.Act(torch.randn(shape, generator=g).to(dev), pending.to(dev),
+                    True)
+    skip = torch.randn(shape, generator=g).to(dev)
+    return a, conv.to(dev), bn.to(dev), skip
+
+
 def kernel_cases(dev) -> list:
     """(name, kernel call, twin call, rtol, atol) at the operating point's
     shapes on ``dev``."""
@@ -135,6 +160,24 @@ def kernel_cases(dev) -> list:
                                             kinds=smoke.POSES[:2])
     x, w = smoke.conv_inputs(dev, smoke.KNET_LAYER, CFG.kv_feature_dim)
     pad = -float(np.log(CFG.ndepth))
+    a, conv, bn, skip = conv2d_case(dev)
+    M = a.raw.shape[0] * a.raw.shape[2] * a.raw.shape[3]
+    bm = kconv2d.TILES[kconv2d.config_for(M, conv.out_channels)][0]
+
+    @torch.no_grad()
+    def conv2d_kernel():
+        y = kconv2d.conv_bn(a, conv, bn)
+        return torch.cat([y.raw.flatten(), y.bn.flatten()])
+
+    @torch.no_grad()
+    def conv2d_twin():
+        y, part = kconv2d.conv_plain(a, conv, True, bm)
+        return torch.cat([y.flatten(),
+                          kconv2d.finalize_plain(part, M, bm, bn).flatten()])
+
+    with torch.no_grad():
+        held = kconv2d.finalize_plain(
+            kconv2d.tile_stats_plain(skip, bm), M, bm, bn)
     return [
         ("sweep_fused", lambda: ksweep.sweep_kernel(ref, srcs, coords, 10.0),
          lambda: ksweep.sweep_plain(ref, srcs, coords, 10.0),
@@ -145,6 +188,12 @@ def kernel_cases(dev) -> list:
         ("conv3d", lambda: kconv.conv3d_kernel(x, w, torch.float32),
          lambda: kconv.conv3d_plain(x, w, torch.float32),
          *smoke.CONV_TOL["fp32"]),
+        # the conv with its tile statistics, and their finalize; the
+        # residual add of a BatchNorm's output and a skip with its own
+        ("conv2d_bn", conv2d_kernel, conv2d_twin, 1e-4, 1e-4),
+        ("conv2d_bn residual",
+         lambda: kconv2d.residual_kernel(skip, held, a),
+         lambda: kconv2d.residual_plain(skip, held, a), 1e-5, 1e-5),
     ]
 
 
@@ -401,8 +450,7 @@ def hold_lanes(what: str, trajs, n_cards: int, probe: CardProbe,
               f"{want_b1}, one per active lane-frame), B2 {b2} in "
               f"{len(calls)} step calls (want {len(frames)}, one per "
               f"lockstep frame with an active lane)")
-    check(launches == {"sweep_fused": sum(counts), "resample": b2_total,
-                       "conv3d": 0},
+    check(launches == smoke.expected_launches(sum(counts), b2_total),
           f"{what}: the run's launches {launches}")
     for i in range(n):
         check(equals_solo(dirs[i], solos[i]),

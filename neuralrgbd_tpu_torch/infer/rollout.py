@@ -55,7 +55,8 @@ def make_rollout(cfg: ModelConfig, kernels: bool = True,
         return _make_cached_rollout(cfg, make_infer_step(
             cfg, kernels=kernels, fast_knet=fast_knet, tf32=tf32,
             coarse_knet=coarse_knet, with_features=True, graph=graph,
-            **packing), make_frame_features(tf32, graph=graph))
+            **packing), make_frame_features(tf32, graph=graph,
+                                            kernels=kernels))
     step = make_infer_step(cfg, kernels=kernels, fast_knet=fast_knet,
                            tf32=tf32, coarse_knet=coarse_knet, graph=graph,
                            **packing)

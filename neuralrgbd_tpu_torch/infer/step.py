@@ -85,7 +85,8 @@ def step_numerics(tf32: bool):
         cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic = saved
 
 
-def make_frame_features(tf32: bool = False, graph: bool = False):
+def make_frame_features(tf32: bool = False, graph: bool = False,
+                        kernels: bool = True):
     """Returns ``fe1(model, frame (H, W, 3)) -> (layer1 (32, H/2, W/2),
     feat (F, h, w))``: the feature extractor on one frame alone, so with
     B=1 BatchNorm statistics, in the step's numerics (``step_numerics``).
@@ -97,6 +98,9 @@ def make_frame_features(tf32: bool = False, graph: bool = False):
     ``fe_per_frame_bn``. Counterpart of JAX's ``make_frame_features``,
     in the port's planar layout.
 
+    ``kernels``: the extractor's convs on the fp32 conv kernel on the card
+    (``FeatureExtractor.forward``; M adapts to the one frame).
+
     ``graph``: replay the extractor as a captured program, one per device
     (``infer.graph.StepGraph``); ``fe1`` then returns the graph's static
     outputs, which the next call overwrites: a caller that keeps them
@@ -106,7 +110,7 @@ def make_frame_features(tf32: bool = False, graph: bool = False):
     def fe1(model: KVNet, frame: torch.Tensor) -> tuple:
         with step_numerics(tf32):
             layer1, feat = model.feature_extractor["feature_extraction"](
-                frame.permute(2, 0, 1)[None].contiguous())
+                frame.permute(2, 0, 1)[None].contiguous(), kernels=kernels)
         return layer1[0], feat[0]
 
     if not graph:

@@ -8,6 +8,14 @@ layer4 dilation 2, and the residual blocks have no ReLU after the add.
 Input (B, 3, H, W). Returns (layer1 (B, 32, H/2, W/2),
 feat (B, feature_dim, H/4, W/4)). ``compute_dtype``: the convs' dtype
 (``models/layers.py``), None for fp32.
+
+``forward(x, kernels=True)`` runs the trunk's convs and their BatchNorms
+on the fp32 conv kernel (``ops.cuda.conv2d_bn``) where the call is
+inference in fp32 on the card: x a CUDA float32 tensor, ``compute_dtype``
+None and grad off. Every other call (training under autograd, a bf16
+``compute_dtype``, CPU tensors, ``kernels=False``) runs the modules. The
+kernel path leaves the spatial pyramid's pools, its 1x1 convs on the
+pooled maps, the upsampling and the concatenation on the modules.
 """
 
 from __future__ import annotations
@@ -20,8 +28,17 @@ from torch import nn
 
 from neuralrgbd_tpu_torch.models.layers import (Conv2d, convbn,
                                                 upsample_bilinear_ac)
+from neuralrgbd_tpu_torch.ops.cuda import conv2d_bn as kconv
 
 POOLS = (64, 32, 16, 8)   # branch1..branch4
+
+
+def kernel_path(kernels: bool, on_card: bool, dtype: torch.dtype,
+                compute_dtype: Optional[torch.dtype], grad: bool) -> bool:
+    """Whether a call takes the conv kernel: asked for, fp32 on the card,
+    no conv dtype of its own, and no autograd."""
+    return (kernels and on_card and dtype == torch.float32
+            and compute_dtype is None and not grad)
 
 
 class BasicBlock(nn.Module):
@@ -46,6 +63,17 @@ class BasicBlock(nn.Module):
         if self.downsample is not None:
             x = self.downsample(x)
         return out + x
+
+    def fused(self, a: kconv.Act) -> torch.Tensor:
+        """``forward`` on the conv kernel (its twins for CPU tensors), the
+        input an ``Act`` whose pending BatchNorm and ReLU both readers
+        apply; the block's output is written once."""
+        c1, c2 = self.conv1[0], self.conv2
+        y = kconv.conv_bn(a, c1[0], c1[1], relu=True)
+        y = kconv.conv_bn(y, c2[0], c2[1])
+        if self.downsample is not None:
+            a = kconv.conv_bn(a, self.downsample[0], self.downsample[1])
+        return kconv.residual(y, a)
 
 
 def _layer(inplanes, planes, blocks, stride, dilation, device, dt):
@@ -80,12 +108,42 @@ class FeatureExtractor(nn.Module):
             convbn(320, 128, 3, 1, 1, 1, device, dt), nn.ReLU(inplace=True),
             Conv2d(128, feature_dim, 1, 1, padding=0, bias=False,
                    device=device, compute_dtype=dt))
+        self.compute_dtype = compute_dtype
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, kernels: bool = True):
+        if kernel_path(kernels, x.is_cuda, x.dtype, self.compute_dtype,
+                       torch.is_grad_enabled()):
+            return self.fused(x)
         y = self.firstconv(x)
         layer1 = self.layer1(y)                     # H/2, 32 ch
         raw = self.layer2(layer1)                   # H/4, 64 ch
         skip = self.layer4(self.layer3(raw))        # H/4, 128 ch
+        return layer1, self.lastconv(self.pyramid(raw, skip))
+
+    def fused(self, x: torch.Tensor):
+        """``forward`` with the trunk's convs and BatchNorms on the conv
+        kernel (its plain twins for CPU tensors); the spatial pyramid on
+        the modules."""
+        a = kconv.Act(x.contiguous())
+        for i in (0, 2, 4):
+            c = self.firstconv[i]
+            a = kconv.conv_bn(a, c[0], c[1], relu=True)
+        for block in self.layer1:
+            a = kconv.Act(block.fused(a))
+        layer1 = a.raw                              # H/2, 32 ch
+        for block in self.layer2:
+            a = kconv.Act(block.fused(a))
+        raw = a.raw                                 # H/4, 64 ch
+        for block in (*self.layer3, *self.layer4):
+            a = kconv.Act(block.fused(a))
+        feat = self.pyramid(raw, a.raw)
+        c = self.lastconv[0]
+        y = kconv.conv_bn(kconv.Act(feat), c[0], c[1], relu=True)
+        return layer1, kconv.conv_bn(y, self.lastconv[2], None).raw
+
+    def pyramid(self, raw: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        """The spatial pyramid on ``skip``, concatenated with ``raw`` and
+        ``skip``: the 320 channels ``lastconv`` reads."""
         H, W = skip.shape[-2:]
         branches = []
         for i, pool in enumerate(POOLS):
@@ -95,5 +153,4 @@ class FeatureExtractor(nn.Module):
             b = getattr(self, f"branch{i + 1}")[1:](F.avg_pool2d(skip, pool))
             branches.append(upsample_bilinear_ac(b, (H, W)))
         # concat order: raw, skip, branch4 (8), branch3, branch2, branch1 (64)
-        feat = torch.cat([raw, skip, *branches[::-1]], dim=1)   # 320 ch
-        return layer1, self.lastconv(feat)
+        return torch.cat([raw, skip, *branches[::-1]], dim=1)   # 320 ch

@@ -137,14 +137,16 @@ class KVNet(nn.Module):
         self._interp: dict = {}
         reference_init_(self, seed)
 
-    def features(self, frames: torch.Tensor) -> tuple:
+    def features(self, frames: torch.Tensor, kernels: bool = True) -> tuple:
         """(B, 3, H, W) -> (layer1, feat) of the feature extractor: one
         batch (joint BatchNorm statistics), or with ``fe_per_frame_bn`` one
-        call per frame (B=1 statistics, the weights shared)."""
+        call per frame (B=1 statistics, the weights shared). ``kernels``:
+        its convs on the fp32 conv kernel where the call allows it
+        (``FeatureExtractor.forward``)."""
         fe = self.feature_extractor["feature_extraction"]
         if not self.cfg.fe_per_frame_bn:
-            return fe(frames)
-        layer1, feat = zip(*(fe(frames[i:i + 1])
+            return fe(frames, kernels)
+        layer1, feat = zip(*(fe(frames[i:i + 1], kernels)
                              for i in range(frames.shape[0])))
         return torch.cat(layer1), torch.cat(feat)
 
@@ -176,7 +178,9 @@ class KVNet(nn.Module):
         the feature extractor (the cached-feature rollout). ``kernels``
         routes the plane sweep (and, with ``fast_knet``, the K-Net convs)
         through the CUDA kernel wrappers, which take their plain twins for
-        CPU tensors; False runs the plain versions on any device.
+        CPU tensors, and the feature extractor's convs, in fp32 inference
+        on the card, through the conv kernel; False runs the plain
+        versions on any device.
         ``fast_knet`` (inference only, off by default as in JAX) runs the
         K-Net as ``ops.cuda.conv3d_pair.knet_fast_apply``: its ten 64->64
         convs in bf16 with fp32 accumulation. As in JAX it applies only
@@ -193,7 +197,7 @@ class KVNet(nn.Module):
         if precomputed is not None:
             layer1, feat = precomputed
         else:                                      # (V+1, 32, .), (V+1, F, h, w)
-            layer1, feat = self.features(frames.contiguous())
+            layer1, feat = self.features(frames.contiguous(), kernels)
         h, w = feat.shape[-2:]
         ints = F.avg_pool2d(frames, W // w)        # (V+1, 3, h, w)
         sw = torch.cat([feat, ints], 1) if cfg.use_img_intensity else feat

@@ -283,7 +283,7 @@ def test_step_is_deterministic(caller_flags, caller_deterministic, caller):
     assert seen[1] is True and torch.backends.cudnn.deterministic is caller
 
     class Model:
-        feature_extractor = {"feature_extraction": lambda x: (
+        feature_extractor = {"feature_extraction": lambda x, kernels: (
             seen.append(torch.backends.cudnn.deterministic) or (x, x))}
 
     make_frame_features()(Model(), torch.zeros(4, 6, 3))
