@@ -27,6 +27,7 @@ import numpy as np
 
 from neuralrgbd_tpu_torch.data import preprocess as pp
 from neuralrgbd_tpu_torch.data.trajectory import FrameRecord, Trajectory
+from neuralrgbd_tpu_torch.utils import profiler
 
 EARTH_RADIUS = 6378137.0
 
@@ -169,35 +170,41 @@ def make_trajectory(traj_indx: int, database_path_base: str,
                     img_size_wh=(768, 256), dpv_scale: float = 0.25,
                     crop_w: Optional[int] = 384,
                     d_candi: Optional[np.ndarray] = None) -> KittiTrajectory:
+    """Drive ``traj_indx`` of ``list_drives(database_path_base)``.
+
+    With tracing on (``utils.profiler``), the image listing, the OXTS
+    reads, the pose chain and the calibration are one span
+    ``kitti.trajectory`` (``key``: the drive)."""
     date, drive = list_drives(database_path_base)[traj_indx]
-    date_dir = os.path.join(database_path_base, date)
-    drive_dir = os.path.join(date_dir, drive)
+    with profiler.span("kitti.trajectory", key=drive):
+        date_dir = os.path.join(database_path_base, date)
+        drive_dir = os.path.join(date_dir, drive)
 
-    img_paths_all = sorted(glob.glob(
-        os.path.join(drive_dir, "image_02", "data", "*.png")))
-    if not img_paths_all:
         img_paths_all = sorted(glob.glob(
-            os.path.join(drive_dir, "image_02", "data", "*.jpg")))
-    nimg = len(img_paths_all)
-    # drop first/last 5 frames (depth GT coverage, kitti.py:159-160)
-    sel = list(range(5, nimg - 5))
-    img_paths = [img_paths_all[i] for i in sel]
+            os.path.join(drive_dir, "image_02", "data", "*.png")))
+        if not img_paths_all:
+            img_paths_all = sorted(glob.glob(
+                os.path.join(drive_dir, "image_02", "data", "*.jpg")))
+        nimg = len(img_paths_all)
+        # drop first/last 5 frames (depth GT coverage, kitti.py:159-160)
+        sel = list(range(5, nimg - 5))
+        img_paths = [img_paths_all[i] for i in sel]
 
-    # pair OXTS to images by the FRAME ID in the filename, not by list
-    # position: a dropped camera frame or a short OXTS log must not shift
-    # every later pose by one (position-pairing is what pykitti does; it
-    # silently mis-poses such drives). Missing packets -> invalid pose,
-    # caught by the window validity gate.
-    oxts_paths = sorted(glob.glob(
-        os.path.join(drive_dir, "oxts", "data", "*.txt")))
-    oxts_rows = [np.loadtxt(p).ravel() for p in oxts_paths]
-    T_w_imu = oxts_to_pose(oxts_rows)
-    K_cam2, T_cam2_imu, full_wh = load_calib(date_dir)
-    ext_by_id = {
-        int(os.path.splitext(os.path.basename(p))[0]):
-            (T_cam2_imu @ np.linalg.inv(T)).astype(np.float64)
-        for p, T in zip(oxts_paths, T_w_imu)
-    }
+        # pair OXTS to images by the FRAME ID in the filename, not by list
+        # position: a dropped camera frame or a short OXTS log must not shift
+        # every later pose by one (position-pairing is what pykitti does; it
+        # silently mis-poses such drives). Missing packets -> invalid pose,
+        # caught by the window validity gate.
+        oxts_paths = sorted(glob.glob(
+            os.path.join(drive_dir, "oxts", "data", "*.txt")))
+        oxts_rows = [np.loadtxt(p).ravel() for p in oxts_paths]
+        T_w_imu = oxts_to_pose(oxts_rows)
+        K_cam2, T_cam2_imu, full_wh = load_calib(date_dir)
+        ext_by_id = {
+            int(os.path.splitext(os.path.basename(p))[0]):
+                (T_cam2_imu @ np.linalg.inv(T)).astype(np.float64)
+            for p, T in zip(oxts_paths, T_w_imu)
+        }
     nan_pose = np.full((4, 4), np.nan)
 
     def pose_loader(i):

@@ -18,6 +18,7 @@ maps within 1 pgm unit, images and scene_path_info equal.
 """
 
 import os
+import time
 
 import numpy as np
 import PIL.Image
@@ -34,6 +35,7 @@ from neuralrgbd_tpu_torch.cli.test_kvnet import main as port_cli
 from neuralrgbd_tpu_torch.config import ModelConfig
 from neuralrgbd_tpu_torch.data import kitti
 from neuralrgbd_tpu_torch.data.trajectory import window_batch
+from neuralrgbd_tpu_torch.utils import profiler
 from neuralrgbd_tpu_torch.utils.torch_import import state_dict_from_jax
 
 from tests.test_torch_loop import assert_exports_match, bridged_variables
@@ -151,6 +153,66 @@ def test_kitti_pairs_oxts_by_frame_id(kitti_root):
     assert valid == [i != 2 for i in range(len(gap))]
     for i in (3, 4, 5):
         np.testing.assert_array_equal(gap.frame(i).ext_M, full.frame(i).ext_M)
+
+
+def poses(traj) -> np.ndarray:
+    return np.stack([traj.pose_loader(i) for i in range(len(traj))])
+
+
+@pytest.mark.parametrize("drive", [0, 1], ids=["drive", "missing_oxts"])
+def test_kitti_trajectory_traced(kitti_root, drive):
+    """With tracing on, each ``make_trajectory`` call is one
+    ``kitti.trajectory`` span keyed by the drive's name, and the trajectory
+    is the untraced one (the second drive's NaN pose, where its OXTS
+    packet is missing, included)."""
+    kw = dict(img_size_wh=(192, 64), crop_w=None, d_candi=CFG.d_candi)
+    plain = kitti.make_trajectory(drive, str(kitti_root), **kw)
+    profiler.enable()
+    try:
+        traced = [kitti.make_trajectory(drive, str(kitti_root), **kw)
+                  for _ in range(2)]
+    finally:
+        record = profiler.take()
+    assert [s["name"] for s in record["spans"]] == ["kitti.trajectory"] * 2
+    name = f"{DATE}_drive_{drive + 1:04d}_sync"
+    for s in record["spans"]:
+        assert (s["key"], s["parent"]) == (name, 0)
+        assert s["end_ns"] > s["start_ns"]
+    for t in traced:
+        assert t.img_paths == plain.img_paths and t.name == plain.name
+        np.testing.assert_array_equal(poses(t), poses(plain))
+        assert_trees_equal(t.frame(3), plain.frame(3))
+    assert np.isnan(poses(plain)).any() == (drive == 1)
+
+
+def test_kitti_trajectory_untraced_records_nothing(kitti_root):
+    """Tracing off: no span, and the drive's missing packet is still a
+    NaN pose."""
+    traj = kitti.make_trajectory(1, str(kitti_root), img_size_wh=(192, 64))
+    assert not profiler.enabled()
+    assert not np.isfinite(poses(traj)[2]).all()
+    with pytest.raises(RuntimeError, match="tracing is off"):
+        profiler.take()
+
+
+def test_kitti_trajectory_span_covers_the_poses(kitti_root, monkeypatch):
+    """The span holds the pose chain and the calibration: the host time a
+    KITTI call spends before its first frame."""
+    seen = []
+    for fn in ("oxts_to_pose", "load_calib"):
+        def timed(*args, _f=getattr(kitti, fn)):
+            seen.append(time.time_ns())
+            out = _f(*args)
+            seen.append(time.time_ns())
+            return out
+        monkeypatch.setattr(kitti, fn, timed)
+    profiler.enable()
+    try:
+        kitti.make_trajectory(0, str(kitti_root), img_size_wh=(192, 64))
+    finally:
+        (s,) = profiler.take()["spans"]
+    assert len(seen) == 4
+    assert s["start_ns"] <= min(seen) and max(seen) <= s["end_ns"]
 
 
 @pytest.fixture(scope="module")
