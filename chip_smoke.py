@@ -24,8 +24,9 @@ Phases, each printing its own lines:
    feature_dim 64, fp32, exact reference semantics) with seeded weights:
    finite outputs, log-DPVs <= 0 that sum to 1 over D, depth in
    [d_min, d_max], confidence in (0, 1], and every kernel's launch count
-   equal to T; then one step of two lanes: two sweep launches and one
-   resample launch;
+   equal to T (``conv3d_f32``'s, the exact K-Net's, 23 x (T - 1): frame
+   0 has no K-Net); then one step of two lanes: two sweep launches and
+   one resample launch;
 6. the same rollout on the plain versions on the card, and its first two
    frames on the CPU, against phase 5;
 7. timings: ms per frame on both paths (CUDA events), and each kernel at
@@ -255,25 +256,44 @@ Phases, each printing its own lines:
    equal bit for bit; the gap to cuDNN's fp32 modules printed; and the
    extractor's device ms on the kernel path (a CUDA graph of 5 calls),
    call ms and host us a call, beside its twins on the card, cuDNN fp32
-   (the modules in the step's numerics) and the convs' bound.
+   (the modules in the step's numerics) and the convs' bound;
+30. the exact K-Net's conv kernel (``ops.cuda.conv3d_f32``) at its layer
+   shapes in both benchmark cells, (64, 64, 96) and (64, 64, 192) with 64
+   channels: the split pass bit for bit against its twin (a pending
+   BatchNorm and ReLU, a pending BatchNorm and a skip, the K-Net's input
+   read in place); the 16 -> 64 and 64 -> 64 convs and the head (64 -> 1)
+   against fp64 convs of the same inputs, each within ``KNET_F32_BAR``
+   (2x) of cuDNN fp32's own distance, a bar that one TF32 product misses;
+   the BatchNorm each conv leaves pending against the fp64 batch
+   statistics; two calls equal bit for bit; and the 64 -> 64 conv's device
+   ms, call ms and host us beside its plain twin, cuDNN fp32's conv, its
+   3xTF32 bound and its fp32 FFMA bound, with the split's and the head's
+   device ms.
 
 Every phase that counts launches also expects the D-Net conv kernel's,
 ``FE_LAUNCHES`` (138) a kernel-path extractor call: one a lane-step of an
 fp32 inference step, one a frame featurized on the cached path, none in
-training or with a bf16 extractor.
+training or with a bf16 extractor; and the exact K-Net's,
+``KNET_F32_LAUNCHES`` (23: 11 splits, 11 convs, the head) a K-Net call:
+one a lane-step of an fp32 inference step with a valid carry, none on the
+fast path, with bf16 convs, under ``dnet_bayes`` or in training.
 
 Then one ``{"kernels": [...]}`` line (the conv kernel's launches: phase
 10's, phase 17's, phase 22's and phase 27's fast path; the sweep's, the
-resample's and the D-Net conv kernel's: phase 5's and phases 19-28's,
-phase 24's, 26's and 28's DP counted in the rank processes, phases 27's
-and 28's through the graphs' replays; the D-Net conv kernel's row is
-phase 29's, at five frames, with one frame's under ``n1``)
+resample's, the D-Net conv kernel's and the exact K-Net's: phase 5's and
+phases 19-28's, phase 24's, 26's and 28's DP counted in the rank
+processes (the sweep's and the resample's), phases 27's and 28's through
+the graphs' replays; the D-Net conv kernel's row is
+phase 29's, at five frames, with one frame's under ``n1``; the K-Net
+conv kernel's row is phase 30's 64 -> 64 conv at (64, 64, 96), KITTI's
+width under ``w192``, and its error the largest distance to fp64 there)
 and, last, the ``{"ok": true, ...}`` line. Any failed check exits non-zero before those two lines. A kernel's
 ``ms`` in that line is its ``device_ms``. Every
 kernel's ``bound_ms`` is computed here from the shapes it was timed at:
 the larger of its bytes (each input read once, each output written once)
 over 3.35 TB/s and its operations over the card's peak for their type
-(989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s fp32).
+(989 TFLOP/s bf16 and 495 TFLOP/s TF32 on the tensor cores, 67 TFLOP/s
+fp32; ``conv3d_f32`` takes three TF32 products a multiply-add).
 """
 
 from __future__ import annotations
@@ -326,6 +346,7 @@ from neuralrgbd_tpu_torch.ops.camera import Camera, camera_from_K
 from neuralrgbd_tpu_torch.ops.cuda import build
 from neuralrgbd_tpu_torch.ops.cuda import conv2d_bn as kconv2d
 from neuralrgbd_tpu_torch.ops.cuda import conv3d as kconv
+from neuralrgbd_tpu_torch.ops.cuda import conv3d_f32 as kconv3d_f32
 from neuralrgbd_tpu_torch.ops.cuda import resample as kresample
 from neuralrgbd_tpu_torch.ops.cuda import conv3d_pair as kpair
 from neuralrgbd_tpu_torch.ops.cuda import sweep_fused as ksweep
@@ -357,7 +378,7 @@ IMG_HW = (256, 384)
 T = 8
 SEED = 0
 KERNELS = {"sweep_fused": ksweep, "resample": kresample, "conv3d": kconv,
-           "conv2d_bn": kconv2d}
+           "conv2d_bn": kconv2d, "conv3d_f32": kconv3d_f32}
 # Kernel vs plain twin: the twins go through F.grid_sample, which maps pixel
 # coords to [-1, 1] and back; at widths up to 384 px that moves a coordinate
 # by ~1e-4 px, i.e. ~1e-4 in O(1) sampled values. The prediction kernel's
@@ -410,7 +431,7 @@ KNET_LAYER = (CFG.ndepth, IMG_HW[0] // 4, IMG_HW[1] // 4, CFG.kv_feature_dim)
 # the coarse-D K-Net's layer (knet_coarse_d = 2): D/2 planes
 KNET_LAYER_D32 = (CFG.ndepth // 2, *KNET_LAYER[1:])
 # Published peaks of one H100 SXM (dense) and its memory rate.
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 # PyTorch's own TF32 switches (cuDNN, cuBLAS), read before phase 1 sets both
 # off for the whole script
@@ -442,6 +463,15 @@ GRAD_TOL = {"feature_extractor": 5e-2, "kv_net": 5e-3, "r_net": 1e-3}
 # 768x256 (a 192x64 DPV grid), KITTI's depth range
 KITTI_CFG = dataclasses.replace(CFG, d_min=1.0, d_max=60.0)
 KITTI_WH = (768, 256)
+# Phase 30: the exact K-Net's conv kernel (ops.cuda.conv3d_f32) at its
+# layer shapes in both benchmark cells (ScanNet's 64x96 DPV grid, KITTI's
+# 64x192), against fp64: each conv and the head no further from an fp64
+# conv of the same input than KNET_F32_BAR times cuDNN fp32's own distance
+# (the tests' bar), which one TF32 product (both operands rounded to TF32,
+# summed in fp32) must miss
+KNET_F32_SHAPES = (KNET_LAYER, (CFG.ndepth, KITTI_WH[1] // 4,
+                                KITTI_WH[0] // 4, CFG.kv_feature_dim))
+KNET_F32_BAR = 2.0
 KITTI_FRAMES = 30         # 20 after the first and last 5; 15 windows
 T_KITTI = KITTI_FRAMES - 10 - 2 * CFG.t_win_r - 1
 # Phase 21: the LBA CLI on a 24-frame capture (19 exported frames), DSO's
@@ -495,18 +525,32 @@ def fe_launches(fe: FeatureExtractor) -> int:
 
 
 FE_LAUNCHES = fe_launches(FeatureExtractor(CFG.feature_dim, device="meta"))
+# conv3d_f32's launches in one exact K-Net call: 11 splits, 11 convs (each
+# with its finalize) and the head
+KNET_F32_LAUNCHES = 23
+
+
+def knet_steps(steps: int, cfg=CFG, fast_knet: bool = False) -> int:
+    """The exact K-Net's calls on ``conv3d_f32`` in ``steps`` inference
+    steps with a valid carry: one each, none on the fast path (B4), with
+    bf16 convs (the modules) or under ``dnet_bayes`` (no K-Net)."""
+    exact = not fast_knet and cfg.dtype == "float32" and not cfg.dnet_bayes
+    return steps if exact else 0
 
 
 def expected_launches(sweeps: int, resamples: int, conv3d: int = 0,
-                      extractor: int | None = None) -> dict:
+                      extractor: int | None = None, knet: int = 0) -> dict:
     """Each kernel's launches in a run of ``sweeps`` sweeps, ``resamples``
-    predictions, ``conv3d`` K-Net convs and ``extractor`` kernel-path
-    feature-extractor calls. ``extractor`` is ``sweeps`` by default: the
-    fp32 inference step featurizes and sweeps once a lane (training runs
-    neither kernel; a bf16 extractor and the cached path's calls differ)."""
+    predictions, ``conv3d`` K-Net convs on the bf16 path, ``extractor``
+    kernel-path feature-extractor calls and ``knet`` exact K-Net calls on
+    the fp32 kernels (``knet_steps``). ``extractor`` is ``sweeps`` by
+    default: the fp32 inference step featurizes and sweeps once a lane
+    (training runs neither kernel; a bf16 extractor and the cached path's
+    calls differ)."""
     return {"sweep_fused": sweeps, "resample": resamples, "conv3d": conv3d,
             "conv2d_bn": FE_LAUNCHES * (sweeps if extractor is None
-                                        else extractor)}
+                                        else extractor),
+            "conv3d_f32": KNET_F32_LAUNCHES * knet}
 
 
 def check(ok: bool, what: str) -> None:
@@ -769,7 +813,7 @@ def phase_rollout(model, device) -> tuple:
           flush=True)
     frames = frames_on(device, T)
     launches, depth, conf = check_rollout(
-        model, frames, expected_launches(T, T))
+        model, frames, expected_launches(T, T, knet=T - 1))
     two = {k: v[0] for k, v in frames_on(device, 1, n_lanes=2).items()}
     before = {name: mod.launches for name, mod in KERNELS.items()}
     make_infer_step(CFG)(model, two, bv0_on(device).expand(2, -1, -1, -1),
@@ -780,7 +824,8 @@ def phase_rollout(model, device) -> tuple:
     check(counts == expected_launches(2, 1),
           f"one step of 2 lanes: launches {counts} (expected 2 sweeps, "
           f"1 resample for both lanes and the extractor's "
-          f"{FE_LAUNCHES} conv2d_bn launches a lane)")
+          f"{FE_LAUNCHES} conv2d_bn launches a lane; no K-Net on a first "
+          f"frame)")
     return launches, frames, depth, conf
 
 
@@ -1509,10 +1554,11 @@ def phase_loop(model, device, tmp: str) -> dict:
     print("  " + "\n  ".join(ln for ln in out.splitlines()
                               if not ln.startswith("Finished frame")),
           flush=True)
-    check(launches == expected_launches(T_LOOP, T_LOOP),
+    check(launches == expected_launches(T_LOOP, T_LOOP, knet=T_LOOP - 1),
           f"launches in the CLI's run: {launches} (expected {T_LOOP} sweeps, "
-          f"{T_LOOP} resamples, no K-Net conv and {FE_LAUNCHES} conv2d_bn a "
-          f"frame)")
+          f"{T_LOOP} resamples, no bf16 K-Net conv, {FE_LAUNCHES} conv2d_bn "
+          f"a frame and {KNET_F32_LAUNCHES} conv3d_f32 a frame but the "
+          f"first)")
     out_dir = os.path.join(tmp, "cli", "loop_0")
     check_contract(out_dir)
 
@@ -1649,7 +1695,9 @@ def cli_flag_run(model, loop_info: dict, tmp: str, name: str, flags: list,
           flush=True)
     fe_calls = (T_LOOP + 2 * CFG.t_win_r
                 if rollout_kw.get("cache_features") else T_LOOP)
-    want = expected_launches(T_LOOP, T_LOOP, extractor=fe_calls)
+    want = expected_launches(
+        T_LOOP, T_LOOP, extractor=fe_calls,
+        knet=knet_steps(T_LOOP - 1, cfg, rollout_kw.get("fast_knet", False)))
     check(launches == want,
           f"cli.test_kvnet {' '.join(flags)}: launches {launches} "
           f"(expected {want}), whole run {cli_s:.2f} s")
@@ -1686,7 +1734,8 @@ def phase_cached(model, device, loop_info: dict, tmp: str) -> None:
     try:
         _, cdepth, cconf = check_rollout(
             model, frames,
-            expected_launches(T, T, extractor=T + 2 * CFG.t_win_r),
+            expected_launches(T, T, extractor=T + 2 * CFG.t_win_r,
+                              knet=T - 1),
             cache_features=True)
     finally:
         rollout_mod.make_infer_step = make
@@ -1745,7 +1794,8 @@ def phase_coarse(model, device, frames, depth, loop_info: dict,
         for name, fast in (("exact", False), ("fast_knet", True)):
             launches, cdepth, _ = check_rollout(
                 model, frames,
-                expected_launches(T, T, 10 * (T - 1) if fast else 0),
+                expected_launches(T, T, 10 * (T - 1) if fast else 0,
+                                  knet=knet_steps(T - 1, fast_knet=fast)),
                 coarse_knet=2, fast_knet=fast)
             runs[name] = launches, cdepth
     finally:
@@ -2418,7 +2468,8 @@ def phase_kitti(device, tmp: str, errs: dict) -> dict:
     with StepProbe(loop_mod) as probe:
         quiet(cli_test_kvnet.main, argv)
     launches = read_launches()
-    check(launches == expected_launches(T_KITTI, T_KITTI),
+    check(launches == expected_launches(T_KITTI, T_KITTI,
+                                        knet=T_KITTI - 1),
           f"launches in the KITTI loop: {launches} (expected {T_KITTI} "
           f"sweeps and {T_KITTI} resamples at {W // 4} wide, the extractor "
           f"at {W}x{H})")
@@ -2717,7 +2768,8 @@ def phase_heads(model, device, loop_info: dict, tmp: str) -> dict:
         print(f"  {name}:", flush=True)
         torch.cuda.reset_peak_memory_stats()
         got, depth, conf = check_rollout(
-            head, frames, expected_launches(T, T), cfg=cfg)
+            head, frames,
+            expected_launches(T, T, knet=knet_steps(T - 1, cfg)), cfg=cfg)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         for k in KERNELS:
             launches[k] += got[k]
@@ -3016,13 +3068,27 @@ def write_lanes(root: str, lengths, first_idx: int = 0,
                             d_candi=CFG.d_candi) for k in range(len(lengths))]
 
 
-def valid_windows(traj) -> int:
-    """The windows of ``traj`` whose poses are all finite: its exports."""
+def windows_ok(traj) -> list[bool]:
+    """Whether each window of ``traj`` (refs t_win_r .. len - t_win_r - 2)
+    has all its poses finite."""
     r = CFG.t_win_r
     ok = [bool(np.isfinite(traj.pose_loader(i)).all())
           for i in range(len(traj))]
-    return sum(all(ok[ref - r:ref + r + 1])
-               for ref in range(r, len(traj) - r - 1))
+    return [all(ok[ref - r:ref + r + 1])
+            for ref in range(r, len(traj) - r - 1)]
+
+
+def valid_windows(traj) -> int:
+    """The windows of ``traj`` whose poses are all finite: its exports."""
+    return sum(windows_ok(traj))
+
+
+def carried_windows(traj) -> int:
+    """The valid windows of ``traj`` whose previous window was valid too:
+    those with a valid carry, which run the K-Net (the loop resets the
+    carry at the start and on an invalid pose)."""
+    ok = windows_ok(traj)
+    return sum(a and b for a, b in zip(ok, ok[1:]))
 
 
 def info_rows(res_dir: str) -> list[list[str]]:
@@ -3061,8 +3127,11 @@ def phase_lockstep(model, device, loop_info: dict, tmp: str) -> dict:
           f"one step call per lockstep frame ({len(probe.calls)} for "
           f"{frames}), each with N sweep launches for its N active lanes "
           f"and 1 prediction launch: lanes per frame {lanes}")
-    check(launches == expected_launches(sum(counts), frames),
-          f"launches in the lockstep run: {launches}")
+    carried = [carried_windows(t) for t in trajs]
+    check(launches == expected_launches(sum(counts), frames,
+                                        knet=sum(carried)),
+          f"launches in the lockstep run: {launches} (the K-Net on "
+          f"{carried} lane-frames with a valid carry)")
 
     # each lane alone through run_trajectory: the same frames, bit for bit
     for i, traj in enumerate(trajs):
@@ -3118,7 +3187,9 @@ def phase_lockstep(model, device, loop_info: dict, tmp: str) -> dict:
                   for c, d in zip(cli_dirs, dirs[:2]))
           and cli_launches["resample"] == frames
           and cli_launches["sweep_fused"] == sum(counts[:2])
-          and cli_launches["conv2d_bn"] == FE_LAUNCHES * sum(counts[:2]),
+          and cli_launches["conv2d_bn"] == FE_LAUNCHES * sum(counts[:2])
+          and cli_launches["conv3d_f32"]
+          == KNET_F32_LAUNCHES * sum(carried[:2]),
           f"cli.test_kvnet --multi_device --traj_idx 0 1: {printed}, each "
           f"lane's files those of run_trajectories_parallel, launches "
           f"{cli_launches}")
@@ -3261,8 +3332,9 @@ def phase_campaign(device, tmp: str) -> dict:
           f"{[s for s, _ in evals]} finite: abs_rel "
           f"{[round(r['abs_rel'], 4) for _, r in evals]}, delta1 "
           f"{[round(r['delta1'], 4) for _, r in evals]}")
-    check(launches == expected_launches(len(evals) * n_frames,
-                                        CAMP_STEPS + len(evals) * n_frames),
+    check(launches == expected_launches(
+        len(evals) * n_frames, CAMP_STEPS + len(evals) * n_frames,
+        knet=len(evals) * (n_frames - len(holdouts))),
           f"launches {launches}: one sweep and one resample per holdout "
           f"frame ({len(evals)} evaluations of {n_frames} frames), one "
           f"resample per train step (the carry)")
@@ -3331,8 +3403,12 @@ def phase_campaign(device, tmp: str) -> dict:
     # coarse arms, once a holdout frame (2 t_win_r more than its windows)
     # in the cached and deploy arms, never in the bf16 arm (its modules)
     cached = n_frames + 2 * CFG.t_win_r * len(holdouts)
+    # the exact K-Net on every frame but a holdout's first, in every arm
+    # but bf16's (its modules)
+    knet = sum(arm != "bf16" for arm in eval_deviations.ARMS) * (
+        n_frames - len(holdouts))
     want = expected_launches(n_arms * n_frames, n_arms * n_frames,
-                             extractor=2 * n_frames + 2 * cached)
+                             extractor=2 * n_frames + 2 * cached, knet=knet)
     check(gate_launches == want,
           f"the gate's launches {gate_launches} (expected {want}): one "
           f"sweep and one resample per frame of each of its {n_arms} arms")
@@ -3517,7 +3593,8 @@ def phase_graph(model, device, tmp: str, loop_info=None) -> dict:
         want = expected_launches(
             T, T, 10 * (T - 1) if kw.get("fast_knet") else 0,
             extractor=T + 2 * CFG.t_win_r if kw.get("cache_features")
-            else None)
+            else None,
+            knet=knet_steps(T - 1, cfg, kw.get("fast_knet", False)))
         for k in KERNELS:
             launches[k] += counted[k]
         check(counted == want and all(
@@ -3540,7 +3617,8 @@ def phase_graph(model, device, tmp: str, loop_info=None) -> dict:
         counted = read_launches()
         outs[name] = os.path.join(tmp, f"cli_{name}", "loop_0")
         captured = [ln for ln in out.splitlines() if "graph(s)" in ln]
-        check(counted == expected_launches(T_LOOP, T_LOOP),
+        check(counted == expected_launches(T_LOOP, T_LOOP,
+                                           knet=T_LOOP - 1),
               f"cli.test_kvnet {' '.join(extra) or '(chunk_t 32)'}: "
               f"launches {counted} (expected {T_LOOP} sweeps and "
               f"{T_LOOP} resamples); {captured or 'no graph captured'}")
@@ -3775,9 +3853,10 @@ def graph_campaign(device, tmp: str) -> dict:
                                img_wh=IMG_HW[::-1], n_frames=CAMP_FRAMES,
                                root=os.path.join(tmp, "scenes"))
     launches = read_launches()
-    frames = len(camp.evals) * sum(len(eval_refs(h, CFG.t_win_r, 2))
-                                   for h in camp.holdouts)
-    want = expected_launches(frames, 4 + frames)
+    refs = [len(eval_refs(h, CFG.t_win_r, 2)) for h in camp.holdouts]
+    frames = len(camp.evals) * sum(refs)
+    want = expected_launches(frames, 4 + frames, knet=len(camp.evals) * sum(
+        max(n - 1, 0) for n in refs))
     check(summary["graph"] is True and camp.state.step == 4
           and all(math.isfinite(m["abs_rel"]) for _, m in camp.evals)
           and launches == want,
@@ -3801,6 +3880,17 @@ def lba_files_equal(a: str, b: str) -> bool:
              and np.array_equal(pa["extMs"], pb["extMs"], equal_nan=True))
     return poses and same_files(a, b, [x for x in names
                                        if x != "poses.npz"])
+
+
+def lba_carried(text: str) -> int:
+    """The frames of an LBA CLI run with a valid carry, which run the
+    K-Net, from its printed frame lines: each exported frame right after
+    an exported one (the first frame, and one after a window the pose gate
+    skipped, start without a carry)."""
+    seq = [ln.endswith("exported + poses optimized")
+           for ln in text.splitlines() if ln.startswith("frame ")
+           and ("exported" in ln or "skipped" in ln)]
+    return sum(a and b for a, b in zip(seq, seq[1:]))
 
 
 def graph_lba(device, loop_info: dict, tmp: str) -> dict:
@@ -3850,14 +3940,15 @@ def graph_lba(device, loop_info: dict, tmp: str) -> dict:
             launches[k] += counted[k]
         out_dir = os.path.join(tmp, f"lba_{arm}_graph", "lba")
         timing = [x for x in text.splitlines() if x.startswith("TIMING")]
-        want = expected_launches(n, 2 * n)
+        want = expected_launches(n, 2 * n, knet=lba_carried(text))
         check(n == n_eager and lba_files_equal(out_dir, eager_dir)
               and counted == want,
               f"cli.test_kvnet_lba --pose_graph {arm} --graph: {n} frames; "
               f"every file equal to the eager run's (poses.npz NaN equal) "
               f"{lba_files_equal(out_dir, eager_dir)}; launches through the "
               f"replays {counted} (expected {want}: B1 once, B2 and B3 once "
-              f"each a frame); {len(graph_mod.captures) - start} graphs "
+              f"each a frame, the K-Net on each frame with a valid carry); "
+              f"{len(graph_mod.captures) - start} graphs "
               f"captured")
         print(f"  {CARD[0]}: {arm} arm graphed "
               f"{timing[0] if timing else 'no TIMING'}", flush=True)
@@ -4089,6 +4180,157 @@ def phase_conv2d(model, device, frames, errs) -> dict:
     return row
 
 
+def conv3d_dhwc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(D, H, W, C) x (N, C, 3, 3, 3) -> (D, H, W, N), padding 1, in x's
+    dtype (cuDNN on the card)."""
+    return F.conv3d(x.permute(3, 0, 1, 2)[None], w, padding=1)[0].permute(
+        1, 2, 3, 0)
+
+
+def knet_conv(cin: int, cout: int, seed: int, device) -> torch.nn.Module:
+    """A seeded K-Net ``convbn_3d`` (3x3x3 conv, no bias, and its
+    batch-statistics BatchNorm), the BatchNorm's scale and shift drawn
+    away from 1 and 0 so that a transform at the wrong place shows."""
+    layer = layers_mod.reference_init_(
+        layers_mod.convbn_3d(cin, cout, 3, 1, 1), seed=seed)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        layer[1].weight.copy_(0.5 + torch.rand(cout, generator=g))
+        layer[1].bias.copy_(torch.rand(cout, generator=g) - 0.5)
+    return layer.to(device)
+
+
+def conv3d_f32_bound(P: int, C: int, N: int) -> tuple[float, str]:
+    """One ``conv3d_f32`` conv over P voxels, C -> N channels: the split
+    input (two parts) and the split weights read once, the output written
+    once; three TF32 products a multiply-add on the tensor cores."""
+    CP, NP = -(-C // 16) * 16, -(-N // 64) * 64
+    nbytes = 4 * (2 * P * CP + 2 * 27 * CP * NP + P * N)
+    return bound(nbytes, 3 * 2.0 * 27 * C * N * P, "tf32")
+
+
+def fp64_gaps(name: str, got, cudnn, one_tf32, exact, errs: list) -> None:
+    """Check ``got`` no further from ``exact`` (fp64) than KNET_F32_BAR
+    times cuDNN fp32's distance, and one TF32 product further than that."""
+    gaps = [float((t.double() - exact).abs().max())
+            for t in (got, cudnn, one_tf32)]
+    errs.append(gaps[0])
+    check(gaps[0] <= KNET_F32_BAR * gaps[1] < gaps[2],
+          f"{name}: max |error| against fp64 {gaps[0]:.3e}, cuDNN fp32's "
+          f"{gaps[1]:.3e} (bar {KNET_F32_BAR:g}x), one TF32 product's "
+          f"{gaps[2]:.3e} (must miss the bar)")
+
+
+def phase_conv3d_f32(device, errs: list) -> dict:
+    """Phase 30: the exact K-Net's conv kernel against its fp64 twins at
+    the K-Net's layer shapes of both cells; the ``kernels`` line's row
+    (the 64 -> 64 conv at ScanNet's shape, KITTI's under ``w192``)."""
+    k3 = kconv3d_f32
+    print(f"phase 30: the exact K-Net's conv kernel (ops.cuda.conv3d_f32) "
+          f"against fp64 at (D, H, W, C) = {KNET_F32_SHAPES}", flush=True)
+    rna = k3.rna_tf32
+    row = {}
+    for D, H, W, C in KNET_F32_SHAPES:
+        where = f"({D}, {H}, {W})"
+        g = torch.Generator().manual_seed(SEED + W)
+        raw = torch.randn((D, H, W, C), generator=g)
+        pend = torch.stack([torch.randn(C, generator=g),
+                            0.5 + torch.rand(C, generator=g),
+                            torch.randn(C, generator=g)])
+        skip = k3.split_plain(k3.Act(torch.randn((D, H, W, C),
+                                                 generator=g)))
+        vol = torch.randn((16, D, H, W), generator=g)
+        acts = {"a pending BatchNorm and ReLU": k3.Act(raw, pend, True),
+                "a pending BatchNorm and a skip": k3.Act(raw, pend, False,
+                                                         skip),
+                "the K-Net's (C, D, H, W) input in place":
+                    k3.Act(vol.permute(1, 2, 3, 0))}
+        on = {n: k3.Act(*(t.to(device) if torch.is_tensor(t) else t
+                          for t in a)) for n, a in acts.items()}
+        with torch.no_grad(), step_mod.step_numerics(False):
+            for n, a in acts.items():
+                check(torch.equal(k3.split_kernel(on[n]).cpu(),
+                                  k3.split_plain(a)),
+                      f"{where} split of {n}: equal to its twin bit for bit")
+            del acts, skip
+            # the first layer's 16 -> C, then C -> C, whose layer, output
+            # and pending BatchNorm the head and the timings below take
+            ins = {16: k3.split_kernel(
+                       on["the K-Net's (C, D, H, W) input in place"]),
+                   C: k3.split_kernel(on["a pending BatchNorm and ReLU"])}
+            for cin, s in ins.items():
+                conv, bn = knet_conv(cin, C, SEED + cin, device)
+                x = k3.value(s)[..., :cin]
+                y, pending = k3.conv_kernel(s, conv, bn)
+                y2, pending2 = k3.conv_kernel(s, conv, bn)
+                exact = conv3d_dhwc(x.double(), conv.weight.double())
+                fp64_gaps(f"{where} conv {cin} -> {C}", y,
+                          conv3d_dhwc(x, conv.weight),
+                          conv3d_dhwc(rna(x), rna(conv.weight)), exact,
+                          errs)
+                flat = exact.reshape(-1, C)
+                mean, var = flat.mean(0), flat.var(0, unbiased=False)
+                scale = bn.weight.double() / torch.sqrt(var + bn.eps)
+                check(within(pending[0].double(), mean, 1e-5, 1e-5)
+                      and within(pending[1].double(), scale, 1e-5, 1e-5)
+                      and torch.equal(pending[2], bn.bias),
+                      f"{where} conv {cin} -> {C}: the BatchNorm it leaves "
+                      f"pending against the fp64 batch statistics (mean "
+                      f"{max_err(pending[0].double(), mean):.2e}, scale "
+                      f"{max_err(pending[1].double(), scale):.2e}; rtol and "
+                      f"atol 1e-5), beta as given")
+                check(torch.equal(y, y2) and torch.equal(pending, pending2),
+                      f"{where} conv {cin} -> {C}: two calls equal bit for "
+                      f"bit")
+                del exact, flat
+            head = layers_mod.reference_init_(layers_mod.Conv3d(
+                C, 1, 3, 1, padding=1, bias=False), seed=SEED).to(device)
+            a = k3.Act(y, pending, True)
+            got = k3.head_kernel(a, head)
+            v = k3.apply_pending(a)
+            fp64_gaps(f"{where} head {C} -> 1", got, k3.head_plain(a, head),
+                      conv3d_dhwc(rna(v), rna(head.weight))[..., 0],
+                      conv3d_dhwc(v.double(), head.weight.double())[..., 0],
+                      errs)
+            check(torch.equal(got, k3.head_kernel(a, head)),
+                  f"{where} head {C} -> 1: two calls equal bit for bit")
+
+            # the 64 -> 64 conv (ten of the K-Net's twelve) timed beside
+            # its twin and cuDNN fp32's conv (the module path's)
+            s = ins[C]
+            xn = k3.value(s)[..., :C].permute(3, 0, 1, 2)[None].contiguous()
+            P = D * H * W
+            r = time_kernel(
+                f"conv3d_f32 {C} -> {C} at {where}",
+                lambda: k3.conv_kernel(s, conv, bn),
+                lambda: k3.conv_plain(s, conv, bn),
+                conv3d_f32_bound(P, C, C),
+                lambda: F.conv3d(xn, conv.weight, padding=1))
+            split = on["a pending BatchNorm and a skip"]
+            r.update(
+                ffma_bound_ms=2.0 * 27 * C * C * P / PEAK_FLOPS["fp32"] * 1e3,
+                split_ms=device_ms(lambda: k3.split_kernel(split), calls=20,
+                                   replays=3),
+                head_ms=device_ms(lambda: k3.head_kernel(a, head), calls=20,
+                                  replays=3))
+        print(f"  {CARD[0]}: {where}: the conv {r['device_ms']:.4f} ms "
+              f"({2.0 * 27 * C * C * P / r['device_ms'] * 1e-9:.1f} TFLOP/s "
+              f"of fp32 FLOPs; its bounds {r['bound_ms']:.4f} ms at 3xTF32, "
+              f"{r['ffma_bound_ms']:.4f} ms at the fp32 FFMA rate), cuDNN "
+              f"fp32 {r['library_ms']:.4f} ms a call; the split with a skip "
+              f"{r['split_ms']:.4f} ms, the head {r['head_ms']:.4f} ms",
+              flush=True)
+        if (D, H, W, C) == KNET_LAYER:
+            row = r
+        else:
+            row["w192"] = {k: r[k] for k in ("device_ms", "call_ms",
+                                             "library_ms", "bound_ms",
+                                             "split_ms", "head_ms")}
+        del ins, on, s, xn, y, y2, a, v
+        torch.cuda.empty_cache()
+    return row
+
+
 def main() -> int:
     t_start = time.perf_counter()
     device = phase_device()
@@ -4129,6 +4371,8 @@ def main() -> int:
                 launches[name] += n
     timing["kernels"]["conv2d_bn"] = phase_conv2d(model, device, frames,
                                                   errs["conv2d_bn"])
+    timing["kernels"]["conv3d_f32"] = phase_conv3d_f32(device,
+                                                       errs["conv3d_f32"])
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of command "
           f"time from phase 1 on", flush=True)
     if failures:

@@ -26,19 +26,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from neuralrgbd_tpu_torch.models.layers import (Conv2d, convbn,
+from neuralrgbd_tpu_torch.models.layers import (Conv2d, convbn, kernel_path,
                                                 upsample_bilinear_ac)
 from neuralrgbd_tpu_torch.ops.cuda import conv2d_bn as kconv
 
 POOLS = (64, 32, 16, 8)   # branch1..branch4
-
-
-def kernel_path(kernels: bool, on_card: bool, dtype: torch.dtype,
-                compute_dtype: Optional[torch.dtype], grad: bool) -> bool:
-    """Whether a call takes the conv kernel: asked for, fp32 on the card,
-    no conv dtype of its own, and no autograd."""
-    return (kernels and on_card and dtype == torch.float32
-            and compute_dtype is None and not grad)
 
 
 class BasicBlock(nn.Module):

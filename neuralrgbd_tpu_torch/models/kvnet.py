@@ -178,9 +178,10 @@ class KVNet(nn.Module):
         the feature extractor (the cached-feature rollout). ``kernels``
         routes the plane sweep (and, with ``fast_knet``, the K-Net convs)
         through the CUDA kernel wrappers, which take their plain twins for
-        CPU tensors, and the feature extractor's convs, in fp32 inference
-        on the card, through the conv kernel; False runs the plain
-        versions on any device.
+        CPU tensors, and the feature extractor's convs and the K-Net's,
+        in fp32 inference on the card, through their conv kernels
+        (``ops.cuda.conv2d_bn``, ``ops.cuda.conv3d_f32``); False runs the
+        plain versions on any device.
         ``fast_knet`` (inference only, off by default as in JAX) runs the
         K-Net as ``ops.cuda.conv3d_pair.knet_fast_apply``: its ten 64->64
         convs in bf16 with fp32 accumulation. As in JAX it applies only
@@ -258,7 +259,7 @@ class KVNet(nn.Module):
                 gain = knet_fast_apply(self.kv_net,
                                        vol.permute(1, 2, 3, 0), kernels)
             else:
-                gain = self.kv_net(vol[None])[0]            # (D/cd, h, w)
+                gain = self.kv_net(vol[None], kernels)[0]   # (D/cd, h, w)
             if cd > 1:
                 gain = torch.einsum("od,dhw->ohw",
                                     self.interp(D // cd, D, gain.device),

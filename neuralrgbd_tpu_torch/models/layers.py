@@ -25,6 +25,8 @@ Internally the port is NCHW / NCDHW, the PyTorch habit. Parity notes:
   everything between convs stay fp32. ``Conv2d``, ``Conv3d`` and
   ``ConvTranspose2d`` are ``nn.Conv*d`` with that one attribute, so their
   state_dict keys are torch's.
+- ``kernel_path`` is the models' one rule for when a module's convs run on
+  their hand-written CUDA kernel (``ops/cuda``) instead of the modules.
 """
 
 from __future__ import annotations
@@ -126,6 +128,14 @@ class BatchNorm2d(_OneValueBN, nn.BatchNorm2d):
 
 class BatchNorm3d(_OneValueBN, nn.BatchNorm3d):
     """``nn.BatchNorm3d`` on batch statistics (5-D input)."""
+
+
+def kernel_path(kernels: bool, on_card: bool, dtype: torch.dtype,
+                compute_dtype: Optional[torch.dtype], grad: bool) -> bool:
+    """Whether a call takes the conv kernel: asked for, fp32 on the card,
+    no conv dtype of its own, and no autograd."""
+    return (kernels and on_card and dtype == torch.float32
+            and compute_dtype is None and not grad)
 
 
 def convbn(in_planes: int, out_planes: int, kernel: int, stride: int,

@@ -243,16 +243,25 @@ def _chan(a: tuple, b: tuple) -> tuple:
 def finalize_plain(part: torch.Tensor, M: int, bm: int, bn: nn.BatchNorm2d
                    ) -> torch.Tensor:
     """The plain twin of ``finalize_kernel``: the (2, tiles, >=N) tile
-    statistics of an M-pixel output merged in the kernel's order, and the
-    (3, N) (mean, scale, beta) of ``bn`` on them. Thread l of
-    ``FIN_THREADS`` merges tiles l, l + FIN_THREADS, ... in turn; each warp
-    of 32 merges as a tree (lane l takes lane l + off, off = 16 .. 1); the
-    warps' results are merged in order."""
+    statistics of an M-pixel output, each tile ``bm`` pixels but the last,
+    merged in the kernel's order (``chan_merge_plain``), and the (3, N)
+    (mean, scale, beta) of ``bn`` on them."""
     N = bn.num_features
     T = part.shape[1]
     cnt = torch.clamp(M - bm * torch.arange(T, device=part.device),
                       max=bm).float()[:, None].expand(T, N)
-    tiles = torch.stack([cnt, part[0, :, :N], part[1, :, :N]])  # (3, T, N)
+    return chan_merge_plain(torch.stack([cnt, part[0, :, :N],
+                                         part[1, :, :N]]), bn)
+
+
+def chan_merge_plain(tiles: torch.Tensor, bn: nn.Module) -> torch.Tensor:
+    """(3, T, N) per-tile count, mean and M2 merged as the finalize kernels
+    merge them, and the (3, N) (mean, gamma / sqrt(var + eps), beta) of
+    ``bn`` on the result. Thread l of ``FIN_THREADS`` merges tiles l,
+    l + FIN_THREADS, ... in turn; each warp of 32 merges as a tree (lane l
+    takes lane l + off, off = 16 .. 1); the warps' results are merged in
+    order."""
+    N, T = tiles.shape[2], tiles.shape[1]
     rounds = -(-T // FIN_THREADS)
     tiles = torch.cat([tiles, tiles.new_zeros(
         (3, rounds * FIN_THREADS - T, N))], 1).view(3, rounds, FIN_THREADS, N)
